@@ -1,14 +1,14 @@
-"""boofcv_tpu — a TPU-native computer-vision / SLAM framework.
+"""boofcv_tpu — a computer-vision / SLAM framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capability surface of BoofCV
+A from-scratch JAX/XLA re-design of the capability surface of BoofCV
 (reference: /root/reference, v0.35-SNAPSHOT): image processing, feature
 detection/description/association/tracking, stereo disparity, multi-view
 geometry, robust estimation, bundle adjustment, visual odometry, camera
-calibration, and recognition — built TPU-first:
+calibration, and recognition — built accelerator-first:
 
 * images are ``jnp`` arrays (HW / HWC, f32/bf16), never pixel loops;
 * per-feature work (KLT, descriptors, minimal solvers) is ``vmap``-batched;
-* association and RANSAC scoring are matmul-shaped for the MXU;
+* association and RANSAC scoring are matmul-shaped;
 * dynamic structures (track lists, detections) are fixed-capacity pools with
   validity masks so everything stays statically shaped under ``jit``;
 * multi-chip scale goes through ``jax.sharding.Mesh`` + ``shard_map`` with XLA
@@ -19,7 +19,6 @@ Layer map (≈ reference modules, see SURVEY.md):
 ========  =====================================================================
 core      image/dtype policy, borders, kernels, pyramid containers  [boofcv-types]
 ip        convolve/blur/gradient/threshold/warp/integral/...        [boofcv-ip]
-kernels   Pallas TPU kernels + XLA fallbacks for the hot ops
 feature   detect/describe/associate/KLT/disparity/flow/...          [boofcv-feature]
 geo       cameras, epipolar, PnP, triangulation, RANSAC, BA         [boofcv-geo]
 sfm       stereo depth, visual odometry, reconstruction             [boofcv-sfm]

@@ -1,6 +1,6 @@
 """Global precision policy.
 
-The reference does all geometry in f64 (Java doubles). On TPU the image /
+The reference does all geometry in f64 (Java doubles). Here the image /
 feature path runs f32 (bf16 where accuracy allows), while the small-matrix
 geometry solvers (epipolar, PnP, BA normal equations) want f64 for
 conditioning.  We therefore enable jax x64 support once at import time —
@@ -21,55 +21,33 @@ _X64_ENABLED = False
 _CACHE_ENABLED = False
 
 
-def enable_compilation_cache(path: str | None = None) -> None:
-    """Enable the JAX persistent compilation cache.
+# fixed in-checkout cache directory (listed in .gitignore): the cache key
+# includes nothing of the path, but a directory that moves never hits
+_DEFAULT_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    ".jax_cache")
 
-    The VO sequence runner alone costs ~80 s to compile; caching makes the
-    second process invocation (bench rerun, test rerun, CLI) skip it.  Path
-    resolution: explicit arg > $BOOFCV_TPU_CACHE > ~/.cache/boofcv_tpu_xla.
-    Set BOOFCV_TPU_CACHE=0 to disable.
+
+def enable_compilation_cache() -> None:
+    """Enable the JAX persistent compilation cache, in
+    ``$JAX_COMPILATION_CACHE_DIR`` when set (JAX reads it itself), else
+    in ``.jax_cache`` at the root of the checkout.
+
+    The VO sequence runner is the slowest compile in the package; the
+    cache lets a second process (bench rerun, test rerun, CLI) skip it.
     """
     global _CACHE_ENABLED
     if _CACHE_ENABLED:
         return
-    env = os.environ.get("BOOFCV_TPU_CACHE", "")
-    if env == "0":
-        return
-    if path is None:
-        path = env or os.path.expanduser("~/.cache/boofcv_tpu_xla")
-    try:
-        # partition the cache by machine: AOT CPU executables compiled on
-        # a host with different CPU features SIGILL-risk on load (the
-        # loader warns "+prefer-no-scatter not supported on the host")
-        import hashlib
-        import platform
-        try:
-            with open("/proc/cpuinfo") as f:
-                flags = [ln for ln in f if ln.startswith("flags")][:1]
-        except OSError:
-            flags = []
-        tag = hashlib.sha256(
-            (platform.machine() + jax.__version__ + "".join(flags))
-            .encode()).hexdigest()[:12]
-        path = os.path.join(path, tag)
-        os.makedirs(path, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", path)
-        # cache everything — tests compile hundreds of small programs
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-        try:
-            # don't embed XLA's internal AOT caches: their loader
-            # feature-checks spam "+prefer-no-scatter not supported"
-            # errors (XLA pseudo-features, not real CPU flags) on every
-            # deserialization
-            jax.config.update("jax_persistent_cache_enable_xla_caches",
-                              "none")
-        except Exception:
-            pass
-        # cache even when only one process compiles (default excludes some)
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-        _CACHE_ENABLED = True
-    except Exception:  # older jax without these flags — run uncached
-        pass
+    if "JAX_COMPILATION_CACHE_DIR" not in os.environ:
+        jax.config.update("jax_compilation_cache_dir", _DEFAULT_CACHE_DIR)
+    # cache everything — tests compile hundreds of small programs
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
+    # don't embed XLA's internal AOT caches: their loader feature-checks
+    # warn about XLA pseudo-features on every deserialization
+    jax.config.update("jax_persistent_cache_enable_xla_caches", "none")
+    _CACHE_ENABLED = True
 
 
 def enable_x64_for_geometry() -> None:

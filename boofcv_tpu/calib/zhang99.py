@@ -486,25 +486,15 @@ def calibrate_mono_planar(world_xy, obs, iterations: int = 30,
                           zero_skew: bool = True,
                           obs_mask=None) -> CalibrationResult:
     """Full Zhang99 pipeline (CalibrateMonoPlanar.process:160) — see
-    ``_calibrate_mono_planar_impl`` for the algorithm.
-
-    Device routing: the whole solve (a few-hundred-parameter f64 GN on
-    tiny matrices) runs on the HOST CPU device even when a TPU is
-    attached — f64 is software-emulated on TPU and the problem has no
-    batch parallelism to feed the MXU (measured: 4.6 s on chip vs
-    ~0.7 s host for 12 views x 48 corners).  Calibration is an offline
-    setup step; the TPU is for the per-frame pipelines it parameterizes.
-    """
-    with jax.default_device(jax.devices("cpu")[0]):
-        return _calibrate_mono_planar_impl(world_xy, obs, iterations,
-                                           zero_skew, obs_mask)
+    ``_calibrate_mono_planar_impl`` for the algorithm.  Runs on the
+    default device."""
+    return _calibrate_mono_planar_impl(world_xy, obs, iterations,
+                                       zero_skew, obs_mask)
 
 
 def calibrate_mono_omni(world_xy, obs, iterations: int = 40,
                         zero_skew: bool = True,
                         mirror_inits=(0.0, 0.5, 1.0, 1.5)):
-    """Universal-omni Zhang99 (see ``_calibrate_mono_omni_impl``); host
-    CPU routed like :func:`calibrate_mono_planar`."""
-    with jax.default_device(jax.devices("cpu")[0]):
-        return _calibrate_mono_omni_impl(world_xy, obs, iterations,
-                                         zero_skew, mirror_inits)
+    """Universal-omni Zhang99 (see ``_calibrate_mono_omni_impl``)."""
+    return _calibrate_mono_omni_impl(world_xy, obs, iterations,
+                                     zero_skew, mirror_inits)

@@ -1,7 +1,7 @@
 """Core types: image policy, borders, kernels, pyramids, configs.
 
 Reference analog: main/boofcv-types (struct/image, struct/convolve,
-struct/border, struct/pyramid, concurrency).  On TPU an "image" is just a
+struct/border, struct/pyramid, concurrency).  Here an "image" is just a
 ``jnp.ndarray`` (H, W) or (H, W, C) — subimages are slices, dtype is a jnp
 dtype, and the concurrency runtime collapses into XLA.
 """

@@ -2,7 +2,7 @@
 
 Reference analog: boofcv-types struct/border/BorderType.java — virtual
 out-of-bounds pixels with EXTENDED / REFLECT / WRAP / ZERO / NORMALIZED /
-SKIP semantics.  On TPU these become either ``jnp.pad`` modes (when an op
+SKIP semantics.  Here these become either ``jnp.pad`` modes (when an op
 pads up-front) or index-remap functions (when a kernel clamps/wraps gather
 coordinates in-place).
 """

@@ -2,11 +2,11 @@
 
 Reference analog: boofcv-types struct/image/* (ImageBase.java:30,
 ImageGray.java:62, Planar.java) — 8 dtypes x 3 layouts with subimage views.
-On TPU the entire hierarchy collapses: a gray image is an (H, W) array, an
+Here the entire hierarchy collapses: a gray image is an (H, W) array, an
 interleaved/color image is (H, W, C), a "Planar" is (C, H, W) or simply a
 batch axis, and a subimage is a slice.  Integer source data (U8/U16) is
 converted to f32 at the edge — every compute-path op in this package is
-float (f32 default, bf16 opt-in), which is both the TPU-native choice and
+float (f32 default, bf16 opt-in), which is both the accelerator-native choice and
 what BoofCV's generated per-dtype code was emulating in fixed point.
 """
 

@@ -2,8 +2,8 @@
 
 No reference analog — BoofCV's only parallelism is a single-JVM
 ForkJoinPool (boofcv-types concurrency/BoofConcurrency.java:35).  This
-package is the TPU-native scaling layer (SURVEY §2.9, §5): device meshes
-via jax.sharding, shard_map + psum/all_gather collectives over ICI/DCN.
+package is the scaling layer (SURVEY §2.9, §5): device meshes via
+jax.sharding, shard_map + psum/all_gather collectives between devices.
 """
 
 from boofcv_tpu.dist.mesh import make_mesh, device_count  # noqa: F401

@@ -7,12 +7,12 @@ across devices; views are replicated.  Each device:
 1. computes jacobians + per-point Schur contributions for its point shard
    (``ba._local_system`` — embarrassingly parallel),
 2. ``psum``s the partial reduced camera system S and rhs over the mesh
-   (one [V,V,D,D]+[V,D] all-reduce riding ICI),
+   (one [V,V,D,D]+[V,D] all-reduce between devices),
 3. solves the (replicated) reduced system locally,
 4. back-substitutes its own point updates — no further communication.
 
 This is the BoofCV-analog of "ring-reduced Schur contributions" planned in
-SURVEY §5; the same structure runs multi-host over DCN once
+SURVEY §5; the same structure runs multi-host across hosts once
 jax.distributed is initialized (device order in the mesh keeps the psum
 hierarchical).
 """
@@ -52,15 +52,14 @@ def pad_points_for_mesh(prob: BAProblem, n_shards: int) -> BAProblem:
 
 def _solve_reduced_pcg_kvjw(T_local, gv_t, fixed_views, lam, iters: int,
                             axis: str = SHARD_AXIS):
-    """Row-scattered block-Jacobi PCG on the TPU-tileable ``kvjw``
-    layout (``T[k, v, j, w] = S[v, w, k, j]``, see
-    ba._local_system_kvjw): psum_scatter leaves each device a view-row
-    slab ``[D, V/n, D, V]`` of the summed system; matvec = one local
-    einsum + one tiled all_gather of [V, D] per CG iteration — and no
-    tensor in the solve ever carries a trailing dim of D, so nothing
-    pads 28x on the (8, 128) tile.  This is the solver that fits
-    V=1000/100k on ONE chip's HBM where both the dense Cholesky and a
-    [V,V,D,D]-layout PCG OOM (measured: 27.7 G requested of 15.75 G)."""
+    """Row-scattered block-Jacobi PCG on the ``kvjw`` layout
+    (``T[k, v, j, w] = S[v, w, k, j]``, see ba._local_system_kvjw):
+    psum_scatter leaves each device a view-row slab ``[D, V/n, D, V]`` of
+    the summed system; matvec = one local einsum + one tiled all_gather
+    of [V, D] per CG iteration.  No tensor in the solve carries a
+    trailing dim of D, and nothing [V, V, D, D]-shaped is ever summed in
+    one piece, so it scales to views where the dense Cholesky path runs
+    out of memory."""
     D, V = T_local.shape[0], T_local.shape[1]
     n = jax.lax.psum(1, axis)
     rows = V // n
@@ -144,8 +143,7 @@ def optimize_sharded(prob: BAProblem, mesh: Mesh, iterations: int = 20,
         solve both run in the ``kvjw`` layout (ba._local_system_kvjw)
         with the Schur fill accumulated over point chunks, so peak
         memory is one [D, V, D, V] slab (~144 MB f32 at V=1000) plus a
-        chunk — V=1000/100k fits and solves on ONE v5e chip where the
-        dense path OOMs (measured).  1D meshes only.
+        chunk.  1D meshes only.
     """
     n_shards = mesh.devices.size
     if reduced_solver not in ("cholesky", "pcg"):
@@ -175,7 +173,7 @@ def optimize_sharded(prob: BAProblem, mesh: Mesh, iterations: int = 20,
                 fixed_views=jnp.concatenate(
                     [prob.fixed_views, jnp.ones(V_pad, bool)]))
     # run in the problem's own float dtype (f64 parity path by default;
-    # f32 is the TPU-native fast path — see ba.optimize)
+    # f32 is the fast path — see ba.optimize)
     dtype = prob.points.dtype
     prob = prob._replace(
         R=prob.R.astype(dtype), t=prob.t.astype(dtype),
@@ -195,8 +193,8 @@ def optimize_sharded(prob: BAProblem, mesh: Mesh, iterations: int = 20,
     # static (non-carried) per-shard data.  The point axis shards over
     # EVERY mesh axis: on a 1D ('shard',) mesh that is plain data
     # parallelism; on a 2D ('host', 'shard') multi-host mesh the reduced
-    # camera psum becomes a hierarchical all-reduce — ICI within a host
-    # row, DCN across hosts (SURVEY §2.9 "sequence/ring parallel" row).
+    # camera psum becomes a hierarchical all-reduce — within a host row,
+    # then across hosts (SURVEY §2.9 "sequence/ring parallel" row).
     axes = tuple(mesh.axis_names)
     point_specs = P(axes)
     rep = P()
@@ -209,8 +207,7 @@ def optimize_sharded(prob: BAProblem, mesh: Mesh, iterations: int = 20,
         check_vma=False)
     def lm_step(R, t, intr, points, obs_xy, obs_view, obs_valid,
                 fixed_views, lam):
-        # full-f32 multiplies (TPU default matmul precision is bf16-grade
-        # — see ba._optimize_impl)
+        # full-f32 multiplies (see ba._optimize_impl)
         with jax.default_matmul_precision("highest"):
             return _lm_step_inner(R, t, intr, points, obs_xy, obs_view,
                                   obs_valid, fixed_views, lam)
@@ -222,7 +219,7 @@ def optimize_sharded(prob: BAProblem, mesh: Mesh, iterations: int = 20,
         Jv, Jp, r = ba._jacobians(local)
         # Jacobi scaling with the globally-psummed GN diagonal so every
         # shard scales the view columns identically (ba._scale_jacobians);
-        # segment sum as one-hot matmul — TPU scatter-add is serialized.
+        # segment sum as one-hot matmul (ROADMAP D2).
         # Chunked so the one-hot temp stays bounded at scale.
         hvv_diag = ba.hvv_diag_chunked(obs_view, Jv, V)
         hvv_diag = jax.lax.psum(hvv_diag, axes)
@@ -230,8 +227,7 @@ def optimize_sharded(prob: BAProblem, mesh: Mesh, iterations: int = 20,
                                                hvv_diag=hvv_diag)
         if reduced_solver == "pcg":
             # at-scale path: chunked [D, V, D, V] assembly + row-scattered
-            # PCG — no [*, D, D]-trailing tensors anywhere (28x tile
-            # padding OOMed the [V,V,D,D] layout on-chip at V=1000)
+            # PCG — no [*, D, D]-trailing tensors anywhere
             T, gv_t, Hpp_inv, W, gp = ba._local_system_kvjw(
                 obs_view, Jv, Jp, r, lam, V, solve_dtype=solve_dtype)
             gv_t = jax.lax.psum(gv_t, axes)
@@ -280,10 +276,8 @@ def optimize_sharded(prob: BAProblem, mesh: Mesh, iterations: int = 20,
     # trace the WHOLE loop under 'highest' matmul precision, exactly like
     # ba._optimize_impl: lm_step already forces it internally, but
     # _apply_step (rotation compositions) and cost_state (reprojection
-    # einsums) otherwise run at the TPU's bf16-grade f32 default, which
-    # floors the achievable cost ~10x high (observed on-chip at V=500:
-    # PCG final cost 1.97e-1 vs 2.08e-2 dense; CPU — where matmul
-    # precision is ignored — showed exact parity)
+    # einsums) would otherwise run at the device's reduced-precision f32
+    # default (TF32 on a GPU), which floors the achievable cost
     with jax.default_matmul_precision("highest"):
         (state, _), costs = jax.lax.scan(
             step, (state0, jnp.asarray(lam0, dtype)), None,

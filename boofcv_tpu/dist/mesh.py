@@ -37,8 +37,8 @@ def initialize_multihost(coordinator_address: str | None = None,
     communication backend"): every process must call this before any other
     JAX API; afterwards ``jax.devices()`` spans all hosts and meshes built
     by :func:`make_mesh`/:func:`make_mesh_2d` include every process's
-    devices — collectives over the mesh ride ICI within a host/slice and
-    DCN across.  Arguments default to the standard env vars
+    devices — collectives over the mesh stay within a host where they can and
+    cross the network between hosts.  Arguments default to the standard env vars
     (JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES, JAX_PROCESS_ID) so
     launchers can configure purely through the environment.
     """
@@ -67,10 +67,10 @@ def make_mesh_2d(n_hosts: int | None = None,
                  axis: str = SHARD_AXIS) -> Mesh:
     """2D (host, shard) mesh for multi-host jobs.
 
-    Rows = processes (DCN between them), columns = each process's local
-    devices (ICI).  Layouts that keep the heavy collective on the inner
-    ``shard`` axis ride ICI; only the outer ``host`` axis reductions cross
-    DCN.  On a single process this still works and simply reshapes the
+    Rows = processes (the network between them), columns = each process's local
+    devices.  Layouts that keep the heavy collective on the inner
+    ``shard`` axis stay within a host; only the outer ``host`` axis reductions
+    cross the network.  On a single process this still works and simply reshapes the
     local devices — used by the CPU-backend multi-host dryrun tests.
     """
     devs = jax.devices()

@@ -33,8 +33,7 @@ def ransac_pnp_sharded(mesh: Mesh, key, world, obs,
 
     Returns (RansacResult, (R, t)) like geo.robust.ransac_pnp with
     effective K = num_hypotheses_per_device * mesh.size: same f32
-    hypothesis bank + f32 GN refine recipe (f64 there is
-    software-emulated on TPU and was the hottest VO stage).
+    hypothesis bank + f32 GN refine recipe.
     """
     n_dev = mesh.shape[SHARD_AXIS]
     keys = jax.random.split(key, n_dev)

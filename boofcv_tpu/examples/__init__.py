@@ -1,4 +1,4 @@
-"""Runnable examples — the TPU-native analog of the reference's
+"""Runnable examples — the analog of the reference's
 ``examples/src/main/java/boofcv/examples/`` tree (78 Java examples).
 
 Each module is a self-contained demo: it synthesizes input with a known
@@ -7,9 +7,9 @@ result, and exits 0 on success.  Run as::
 
     python -m boofcv_tpu.examples.<name>
 
-Examples default to the CPU backend (sub-second compiles; remote-TPU
-sessions pay ~30 s per compile) — pass ``--tpu`` to run on the default
-accelerator instead.
+Examples default to the CPU backend (their inputs are small and CPU
+compiles are quick) — pass ``--accelerator`` to run on JAX's default
+device, e.g. the GPU.
 """
 
 from __future__ import annotations
@@ -18,19 +18,16 @@ import sys
 
 
 def setup_backend(argv=None):
-    """Force the CPU backend unless --tpu is passed.
+    """Force the CPU backend unless --accelerator is passed.
 
     Returns the remaining argv.  Must be called before first jax backend
-    use (mirrors tests/conftest.py).
+    use.
     """
     argv = list(sys.argv[1:] if argv is None else argv)
-    if "--tpu" in argv:
-        argv.remove("--tpu")
+    if "--accelerator" in argv:
+        argv.remove("--accelerator")
         return argv
     import jax
 
-    try:
-        jax.config.update("jax_platforms", "cpu")
-    except Exception:
-        pass
+    jax.config.update("jax_platforms", "cpu")
     return argv

@@ -4,7 +4,7 @@ Reference analog: examples/sfm/ExampleBundleAdjustment.java — load a
 Bundle-Adjustment-in-the-Large problem, scale, optimize with the sparse
 Schur LM solver, print the cost drop.  A BAL-format file is synthesized
 (snavely camera: f, k1, k2), round-tripped through the codec, then
-optimized with the TPU LM-Schur solver.
+optimized with the LM-Schur solver.
 """
 
 from __future__ import annotations

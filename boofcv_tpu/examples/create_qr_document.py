@@ -18,7 +18,7 @@ def main(argv=None) -> int:
     from boofcv_tpu.recognition.qr import code as qr
     from boofcv_tpu.recognition.qr import detector
 
-    messages = [("HELLO BOOFCV TPU", "M"),
+    messages = [("HELLO BOOFCV GPU", "M"),
                 ("0123456789", "L"),
                 ("https://example.org/a/b?c=1", "Q")]
     tiles = []

@@ -17,7 +17,7 @@ def main(argv=None) -> int:
     from boofcv_tpu.recognition.qr import code as qr, detector
 
     rng = np.random.default_rng(10)
-    messages = ["BoofCV on TPU", "hello 12345"]
+    messages = ["BoofCV on GPU", "hello 12345"]
     decoded = []
     for i, msg in enumerate(messages):
         mat = qr.encode(msg, 2, "M", 3)

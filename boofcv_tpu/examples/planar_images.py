@@ -1,8 +1,8 @@
 """Working with multi-band (Planar) images.
 
 Reference analog: examples/imageprocessing/ExamplePlanarImages.java —
-split an interleaved color image into bands, process per band (one vmap
-on TPU), merge back.  Oracle: planar blur equals per-band blur; band
+split an interleaved color image into bands, process per band (one vmap),
+merge back.  Oracle: planar blur equals per-band blur; band
 math (swap red/blue) round-trips.
 """
 

@@ -4,8 +4,8 @@ Reference analog: boofcv-feature alg/feature/associate/AssociateGreedy.java
 :46,65 (brute-force greedy with backwards validation), ScoreAssociation
 implementations (DescriptorDistance.java:37-164), EnsureUniqueAssociation.
 
-TPU design (SURVEY §2.3): the all-pairs score matrix is ONE matmul
-(euclidean-sq via the |a|^2+|b|^2-2ab expansion rides the MXU), and
+Design (SURVEY §2.3): the all-pairs score matrix is ONE matmul
+(euclidean-sq via the |a|^2+|b|^2-2ab expansion is one matmul), and
 greedy-with-backwards-validation becomes mutual-nearest-neighbor: row
 argmin + col argmin agreeing — order-independent and equivalent in effect.
 """
@@ -28,7 +28,7 @@ class Matches(NamedTuple):
 
 
 def score_euclidean_sq(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
-    """[Na, D] x [Nb, D] -> [Na, Nb] squared euclidean, MXU-shaped."""
+    """[Na, D] x [Nb, D] -> [Na, Nb] squared euclidean, matmul-shaped."""
     a = a.astype(jnp.float32)
     b = b.astype(jnp.float32)
     a2 = jnp.sum(a * a, axis=1, keepdims=True)
@@ -144,12 +144,12 @@ def associate_mutual_tiled(desc_a: jnp.ndarray, desc_b: jnp.ndarray,
                            max_error: float = jnp.inf) -> Matches:
     """Mutual-NN association WITHOUT materializing the [Na, Nb] score
     matrix — association at scale (AssociateNearestNeighbor's role;
-    the reference reaches for KD-trees, the TPU answer is a streamed
+    the reference reaches for KD-trees, the answer here is a streamed
     matmul).
 
     The destination set is processed in ``tile``-column blocks under
-    ``lax.scan``: each step computes one [Na, tile] Euclidean block on
-    the MXU and folds it into running row/column argmins.  Peak memory is
+    ``lax.scan``: each step computes one [Na, tile] Euclidean block as
+    one matmul and folds it into running row/column argmins.  Peak memory is
     O(Na * tile) instead of O(Na * Nb) — 100k x 100k features run in
     ~100 MB-scale tiles instead of a 40 GB matrix.  Scores are squared
     Euclidean (the dominant descriptor metric); results are identical to
@@ -179,8 +179,8 @@ def associate_mutual_tiled(desc_a: jnp.ndarray, desc_b: jnp.ndarray,
         s = (a2[:, None] + jnp.sum(bt * bt, axis=1)[None, :]
              - 2.0 * jnp.matmul(a, bt.T,
                                 precision=lax.Precision.HIGHEST))
-        # HIGHEST matches score_euclidean_sq — at the TPU default
-        # (bf16-grade f32) near-duplicate descriptors tie-broke
+        # HIGHEST matches score_euclidean_sq — at a reduced-precision f32
+        # default (TF32 on a GPU) near-duplicate descriptors tie-break
         # differently between the tiled and full-matrix paths
         s = jnp.maximum(s, 0.0)
         s = jnp.where(va[:, None] & vbt[None, :], s, big)
@@ -240,8 +240,8 @@ def associate_nearest_neighbor_kdtree(desc_a, desc_b, max_error: float = np.inf,
     """Host-side (approximate) KD-tree association —
     AssociateNearestNeighbor.java API parity.
 
-    The TPU-native answer to association at scale is
-    :func:`associate_mutual_tiled` (streamed MXU matmuls); this wrapper
+    The batched answer to association at scale is
+    :func:`associate_mutual_tiled` (streamed matmuls); this wrapper
     exists for host-only pipelines and API completeness, backed by
     scipy's cKDTree.  ``eps`` > 0 allows approximate neighbors (the
     reference's best-bin-first K-D search is likewise approximate).

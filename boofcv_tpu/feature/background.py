@@ -5,7 +5,7 @@ BackgroundStationaryBasic (running average + threshold),
 BackgroundStationaryGaussian (per-pixel mean/variance),
 BackgroundStationaryGmm (mixture of Gaussians, stationary/moving).
 
-TPU design: all three are pure elementwise state updates over [H, W(, C)]
+Design: all three are pure elementwise state updates over [H, W(, C)]
 arrays — one fused kernel per frame.  The moving-camera variants of the
 reference compose these with a homography warp of the model
 (ip.distort.warp) before the update.
@@ -142,7 +142,7 @@ def gmm_segment(model: GmmModel, image, match_sigma: float = 3.0,
 # frame, bilinear-sample, and update only where the sample lands in-bounds.
 # Segment: for each frame pixel, look the model up through the inverse
 # transform; pixels that leave the model are "unknown" (value 2), matching
-# the reference's unknownValue convention.  TPU design: both directions are
+# the reference's unknownValue convention.  Design: both directions are
 # one dense warp grid + fused elementwise update — no per-pixel branching.
 
 UNKNOWN = 2

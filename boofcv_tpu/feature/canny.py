@@ -5,7 +5,7 @@ Reference analog: boofcv-feature alg/feature/detect/edge/CannyEdge.java:45
 GradientToEdgeFeatures.java (intensity/direction ops),
 HysteresisEdgeTraceMark.java:37 / HysteresisEdgeTracePoints.java (tracing).
 
-TPU shape: the whole detector is ONE jitted program — Gaussian blur and
+Shape: the whole detector is ONE jitted program — Gaussian blur and
 Sobel are fused stencils, the direction-discretized non-max is a gather-free
 4-way select over shifted images, and hysteresis (a sequential flood fill in
 the reference) becomes iterative mask propagation under ``lax.while_loop``

@@ -5,7 +5,7 @@ DescribeDenseHogAlg.java / DescribeDenseHogFastAlg (cell histograms +
 block normalization), DescribeDenseSiftAlg (SIFT on a regular grid),
 abst/feature/dense/DescribeImageDense.
 
-TPU design: cell histograms = one one-hot-weighted reshape-sum over the
+Design: cell histograms = one one-hot-weighted reshape-sum over the
 whole image (scatter-free); block normalization is a window-stack
 concat + L2.
 """

@@ -5,7 +5,7 @@ Reference analog: boofcv-feature alg/feature/describe/DescribePointSurf
 DescribePointBrief.java (random-pair binary), DescribePointPixelRegionNCC
 .java, plus orientation estimation alg/feature/orientation/*.
 
-TPU design: every descriptor is a batched gather + reduction over all N
+Design: every descriptor is a batched gather + reduction over all N
 keypoints at once; BRIEF bit-packs with shifts.
 """
 

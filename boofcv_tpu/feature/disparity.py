@@ -7,8 +7,8 @@ block/BlockRowScoreSad.java (SAD scores), DisparitySparseScoreSadRect.java
 (sparse per-pixel BM), sgm/* (SgmDisparityCost, SgmCostAggregation.java:77,
 SgmDisparitySelector).
 
-TPU design: the cost volume is a dense [D, H, W] tensor built from
-shifted-image differences + box-filter aggregation (pure VPU/conv work);
+Design: the cost volume is a dense [D, H, W] tensor built from
+shifted-image differences + box-filter aggregation (elementwise + conv);
 WTA select, left-right check and subpixel interpolation are argmin /
 gather ops over the D axis.  SGM's four scanline recurrences become
 `lax.scan` over rows/columns with vectorized inner axes (wavefront form).
@@ -25,6 +25,7 @@ from jax import lax
 
 from boofcv_tpu.core.border import BorderType, pad
 from boofcv_tpu.ip import census as census_mod
+from boofcv_tpu.ip.interpolate import gather_windows
 
 
 INVALID = -1.0
@@ -154,8 +155,7 @@ def _wta_select(cost: jnp.ndarray, cfg: DisparityConfig) -> jnp.ndarray:
     # the same volume: costR[d, y, x] = cost[d, y, x + min + d].
     # GATHER-FREE: the reindex offset is static per d (96 pad+slice
     # shifts) and the "evaluate bestR at x - (min+d)" lookup becomes a
-    # shifted comparison reduced through the one-hot of best — dynamic
-    # [D, H, W] gathers measured ~460 ms of the 510 ms BM step on a v5e.
+    # shifted comparison reduced through the one-hot of best.
     def _shl(a, s):
         return a if s == 0 else jnp.pad(a, ((0, 0), (0, s)),
                                         mode="edge")[:, s:]
@@ -203,87 +203,39 @@ def block_match(left: jnp.ndarray, right: jnp.ndarray,
     return jnp.where(disp >= 0, disp + cfg.min_disparity, disp)
 
 
+def sparse_sad_windows(cfg):
+    """(wy, wx, pad) of the two window gathers of the sparse SAD: the left
+    (PH, P) patch and the right (PH, D + 2rx) strip.  ``pad`` covers every
+    window of a track inside the image."""
+    rx, ry = cfg.radius_x, cfg.radius_y
+    n_disp = cfg.max_disparity - cfg.min_disparity
+    pad = max(ry, rx + max(cfg.max_disparity - 1, -cfg.min_disparity, 0))
+    return (2 * ry + 1, 2 * rx + 1, pad), (2 * ry + 1, n_disp + 2 * rx, pad)
+
+
 def _sparse_costs_sad(left, right, ys, xs, cfg):
     """[N, D] SAD cost table (DisparitySparseScoreSadRect's scoring).
 
-    TPU formulation: per-track strips come from the Pallas window-gather
-    kernel (one aligned vector load + lane rotate per track — XLA's
-    element-serialized gather dominated the VO spawn path), rows are
-    picked with a one-hot contraction, and the [N, D, P, P] table is
-    cheap static slices of the strip.  Out-of-image columns are masked
-    to 1e6 per element exactly like the flat-gather fallback.
+    One window gather per track and image: the left (PH, P) patch and the
+    right (PH, D + 2rx) strip that every candidate disparity slides over,
+    both with EXTENDED border rows; the [N, D, PH, P] table is static
+    slices of the strip.  Out-of-image strip columns score 1e6 per
+    element.
     """
-    from boofcv_tpu.kernels.window_gather import gather_windows
-    h, w = left.shape
+    w = left.shape[1]
     rx, ry = cfg.radius_x, cfg.radius_y
     n_disp = cfg.max_disparity - cfg.min_disparity
     p = 2 * rx + 1
-    ph = 2 * ry + 1
-    wide_w = n_disp + 2 * rx                             # columns needed
-    if wide_w > 128 or ph > 9:
-        return _sparse_costs_sad_xla(left, right, ys, xs, cfg)
-
-    left = left.astype(jnp.float32)
-    right = right.astype(jnp.float32)
-    ys_c = jnp.clip(ys - ry, 0, h - 1)
-    oy = jnp.maximum((ys_c // 8) * 8, 0)
+    patch_shape, (ph, wide_w, margin) = sparse_sad_windows(cfg)
     x0 = xs - rx - (cfg.min_disparity + n_disp - 1)      # leftmost column
-
-    # per-row EDGE-replicated selection: absolute window row ys-ry+j is
-    # clipped into the image like the flat-gather fallback clips each
-    # sample — the old whole-window offset clip (clip(ys-ry)) slid the
-    # window DOWN at the top border, scoring a patch centered at row ry
-    # instead of row ys and breaking sad/sad_xla equivalence there
-    j = jnp.arange(ph, dtype=jnp.int32)
-    win_rows = jnp.clip((ys - ry)[:, None] + j[None, :], 0, h - 1)         - oy[:, None]                                    # [N, PH] in [0,16)
-
-    def pick_rows(windows):
-        a = jnp.arange(windows.shape[1], dtype=jnp.int32)[None, None, :]
-        sel = (a == win_rows[:, :, None]).astype(windows.dtype)
-        return jnp.einsum("nra,naw->nrw", sel, windows)
-
-    pad_l = wide_w + cfg.min_disparity                   # >= -min(x0) for x>=0
-    strip16 = gather_windows(right, oy, x0, wy=16, wx=wide_w,
-                             pad_left=pad_l, pad_bottom=16)
-    strip = pick_rows(strip16)                           # [N, PH, W']
-    patch16 = gather_windows(left, oy, xs - rx, wy=16, wx=p,
-                             pad_left=rx + 1, pad_bottom=16)
-    patch_l = pick_rows(patch16)                         # [N, PH, P]
-
+    patch_l = gather_windows(left, ys - ry, xs - rx, *patch_shape)
+    strip = gather_windows(right, ys - ry, x0, ph, wide_w, margin)
     cols = x0[:, None] + jnp.arange(wide_w)[None, :]     # [N, W']
     colb = (cols >= 0) & (cols < w)
-    strip = jnp.where(colb[:, None, :], strip, 1e30)
+    strip = jnp.where(colb[:, None, :], strip, jnp.inf)
     # window for disparity index d starts at column (n_disp - 1 - d)
     sl = jnp.stack([strip[:, :, n_disp - 1 - d: n_disp - 1 - d + p]
                     for d in range(n_disp)], axis=1)     # [N, D, PH, P]
-    e = jnp.abs(patch_l[:, None] - sl)
-    e = jnp.where(e > 1e6, 1e6, e)
-    return jnp.sum(e, axis=(2, 3))                       # [N, D]
-
-
-def _sparse_costs_sad_xla(left, right, ys, xs, cfg):
-    """Flat-gather fallback for configs exceeding the window-gather
-    kernel's limits (disparity range > ~120 or block radius > 4)."""
-    h, w = left.shape
-    rx, ry = cfg.radius_x, cfg.radius_y
-    n_disp = cfg.max_disparity - cfg.min_disparity
-    p = 2 * rx + 1
-    dy = jnp.arange(-ry, ry + 1)
-    dx = jnp.arange(-rx, rx + 1)
-    yy = jnp.clip(ys[:, None, None] + dy[None, :, None], 0, h - 1)
-    xx = jnp.clip(xs[:, None, None] + dx[None, None, :], 0, w - 1)
-    patch_l = left[yy, xx]                               # [N, P, P]
-    wide_w = n_disp + 2 * rx                             # columns needed
-    x0 = xs - rx - (cfg.min_disparity + n_disp - 1)      # leftmost column
-    cols = x0[:, None] + jnp.arange(wide_w)[None, :]     # [N, W']
-    colb = (cols >= 0) & (cols < w)
-    rows = yy[:, :, 0]                                   # [N, P]
-    wide = right[rows[:, :, None],
-                 jnp.clip(cols, 0, w - 1)[:, None, :]]   # [N, P, W']
-    wide = jnp.where(colb[:, None, :], wide, jnp.inf)
-    # window for disparity index d starts at column (n_disp - 1 - d)
-    sl = jnp.stack([wide[:, :, n_disp - 1 - d: n_disp - 1 - d + p]
-                    for d in range(n_disp)], axis=1)     # [N, D, P, P]
     e = jnp.abs(patch_l[:, None] - sl)
     e = jnp.where(jnp.isfinite(e), e, 1e6)
     return jnp.sum(e, axis=(2, 3))                       # [N, D]
@@ -291,13 +243,10 @@ def _sparse_costs_sad_xla(left, right, ys, xs, cfg):
 
 def _sparse_costs_ssd(left, right, ys, xs, cfg):
     """[N, D] SSD cost table with the cross term as ONE grouped
-    convolution (per-track template x full right-image rows) — the
-    gather-free MXU formulation: SSD = |L|^2 + |R_win|^2 - 2 <L, R_win>,
-    where <L, R_win> over every window position is a correlation.
-
-    Measured r03 on TPU v5e: the grouped conv (feature_group_count=N,
-    HIGHEST precision) runs ~15 ms for N=512/D=96 — SLOWER than both SAD
-    paths there; kept as the semantic SSD option, not a fast path."""
+    convolution (per-track template x full right-image rows):
+    SSD = |L|^2 + |R_win|^2 - 2 <L, R_win>, where <L, R_win> over every
+    window position is a correlation.  The semantic SSD option, not a
+    fast path."""
     h, w = left.shape
     rx, ry = cfg.radius_x, cfg.radius_y
     n = ys.shape[0]
@@ -340,9 +289,9 @@ def sparse_block_match(left: jnp.ndarray, right: jnp.ndarray,
     """Sparse per-pixel BM at N locations (DisparitySparseScoreSadRect).
 
     ys, xs: [N] int coords in the left image.  Returns (disp [N] float,
-    valid [N] bool).  Scoring: cfg.error == "ssd" uses the grouped-conv
-    MXU path (default for VO spawn depth); "sad" keeps the reference's
-    SAD via gathered strips.  No dense volume is materialized either way.
+    valid [N] bool).  Scoring: cfg.error == "sad" is the reference's SAD
+    over gathered strips (VO spawn depth); "ssd" uses the grouped-conv
+    path.  No dense volume is materialized either way.
     """
     left = left.astype(jnp.float32)
     right = right.astype(jnp.float32)
@@ -352,15 +301,11 @@ def sparse_block_match(left: jnp.ndarray, right: jnp.ndarray,
 
     if cfg.error == "ssd":
         costs = _sparse_costs_ssd(left, right, ys, xs, cfg)
-    elif cfg.error == "sad_xla":
-        # flat-gather SAD, no Pallas: measured on-chip, the Pallas
-        # window-gather kernel stalls ~20 ms when its position operands
-        # transitively depend on convolution outputs in the same program
-        # (VO spawn: shi-tomasi -> top_k -> gather); the XLA path costs
-        # ~4 ms there.  Same scores as "sad" bit-for-bit.
-        costs = _sparse_costs_sad_xla(left, right, ys, xs, cfg)
-    else:
+    elif cfg.error == "sad":
         costs = _sparse_costs_sad(left, right, ys, xs, cfg)
+    else:
+        raise ValueError(f"sparse_block_match: unknown error {cfg.error!r}: "
+                         "'sad' or 'ssd'")
     best = jnp.argmin(costs, axis=1)
     cbest = jnp.min(costs, axis=1)
     valid = (xs - (cfg.min_disparity + best) >= 0) & (cbest < 1e17)
@@ -493,7 +438,7 @@ def block_match_best5(left: jnp.ndarray, right: jnp.ndarray,
 
     Score = center window + the best 2 of the 4 corner-offset windows —
     robust near disparity discontinuities where a single centered window
-    straddles two surfaces.  TPU design: the per-pixel window sums already
+    straddles two surfaces.  Design: the per-pixel window sums already
     exist as the [D, H, W] aggregated cost volume; the corner windows are
     the same volume shifted by (+-ry, +-rx), so best-2-of-4 is a handful
     of elementwise mins — no extra aggregation passes.

@@ -5,7 +5,7 @@ Reference analog: boofcv-feature alg/feature/detect/extract/NonMaxBlock.java
 GeneralFeatureDetector pipeline (alg/feature/detect/interest/
 GeneralFeatureDetector.java:47).
 
-TPU formulation: nonmax = compare against a max-pool of the neighborhood;
+Formulation: nonmax = compare against a max-pool of the neighborhood;
 "N best" = top_k over the masked intensity image.  Output is the standard
 fixed-capacity detection set: ys, xs, scores, valid-mask, all shape [N].
 """

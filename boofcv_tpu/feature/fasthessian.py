@@ -5,7 +5,7 @@ FastHessianFeatureDetector.java:85,156,198,230 — Hessian-determinant blob
 responses computed with box filters over the integral image at a ladder of
 filter sizes, 3x3x3 scale-space nonmax, quadratic subpixel refinement.
 
-TPU design: all (pixel, size) responses for an octave are evaluated as a
+Design: all (pixel, size) responses for an octave are evaluated as a
 dense batched gather over the integral image (sizes stacked on a leading
 axis), nonmax = reduce_window over the stack, detections = top_k.
 """
@@ -37,9 +37,8 @@ def hessian_response(ii: jnp.ndarray, size: int) -> jnp.ndarray:
     """
     h, w = ii.shape
     ys, xs = jnp.meshgrid(jnp.arange(h), jnp.arange(w), indexing="ij")
-    # static-shift whole-image responses: the gather formulation
-    # (ii[grid] with computed indices) measured 643 ms for the 2-octave
-    # ladder on a v5e — pad+slice compiles to copies instead
+    # static-shift whole-image responses: pad+slice compiles to copies
+    # instead of a gather with computed indices (ii[grid])
     dxx = ii_ops.deriv_xx_grid(ii, size)
     dyy = ii_ops.deriv_yy_grid(ii, size)
     dxy = ii_ops.deriv_xy_grid(ii, size)

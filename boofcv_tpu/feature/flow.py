@@ -4,8 +4,8 @@ Reference analog: boofcv-feature alg/flow/ — HornSchunck.java /
 HornSchunckPyramid.java (variational), DenseOpticalFlowBlockPyramid.java
 (block matching), DenseOpticalFlowKlt.java (per-pixel KLT).
 
-TPU design: Horn-Schunck's Jacobi relaxation is an elementwise stencil
-iterated under lax.fori_loop — pure VPU; the pyramid wrapper upsamples
+Design: Horn-Schunck's Jacobi relaxation is an elementwise stencil
+iterated under lax.fori_loop — pure elementwise work; the pyramid wrapper upsamples
 flow coarse-to-fine.  Block flow evaluates a (2r+1)^2 search
 neighborhood as a stacked shift-and-SAD volume, argmin over the
 displacement axis.
@@ -133,7 +133,7 @@ def _image_grad(f):
 
 
 def _box_filter(f, r):
-    """(2r+1)^2 box sum via two cumsum passes (separable, VPU-only)."""
+    """(2r+1)^2 box sum via two cumsum passes (separable, elementwise only)."""
     c = jnp.cumsum(jnp.pad(f, ((r + 1, r), (0, 0))), axis=0)
     f = c[2 * r + 1:, :] - c[:-2 * r - 1, :]
     c = jnp.cumsum(jnp.pad(f, ((0, 0), (r + 1, r))), axis=1)
@@ -150,7 +150,7 @@ def brox_warping(image1, image2, alpha: float = 0.04, gamma: float = 2.0,
     warping.  The reference solves the linearized system with SOR
     (ImplBroxWarpingSpacial); here the lagged-nonlinearity fixed point is
     iterated with Jacobi sweeps — same fixed point, fully parallel on the
-    VPU (SOR's sequential sweep order would serialize on TPU).
+    device (SOR's sequential sweep order would serialize).
 
     Returns (u, v) at full resolution.
     """
@@ -255,7 +255,7 @@ def dense_klt(image1, image2, radius: int = 3, scales=(1, 2, 4),
     """Dense pyramidal Lucas-Kanade flow (DenseOpticalFlowKlt.java analog:
     every pixel is a KLT feature).
 
-    TPU design: instead of per-feature patch gathers, the per-pixel 2x2
+    Design: instead of per-feature patch gathers, the per-pixel 2x2
     structure tensor and mismatch vector are BOX-FILTERED whole images —
     each GN iteration is a handful of fused elementwise maps + cumsum box
     sums, identical math to tracking a (2r+1)^2 template at every pixel.

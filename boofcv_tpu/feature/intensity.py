@@ -5,7 +5,7 @@ FastCornerDetector.java:67 (FAST 9-12), HarrisCornerIntensity.java,
 ShiTomasiCornerIntensity.java (structure tensor via ImplSsdCorner),
 MedianCornerIntensity, HessianBlobIntensity, KitRosCornerIntensity.
 
-TPU formulation: the FAST ring test becomes a 16-way shifted-compare with
+Formulation: the FAST ring test becomes a 16-way shifted-compare with
 a circular run-length test done bit-parallel over the whole image; the
 structure-tensor detectors are two convs + elementwise eigen-math.
 """
@@ -92,11 +92,11 @@ def _structure_tensor(image: jnp.ndarray, radius: int = 2, weighted: bool = Fals
         t = _lax.conv_general_dilated(
             padded, kh, (1, 1), "VALID", feature_group_count=3,
             dimension_numbers=("NCHW", "OIHW", "NCHW"),
-            precision=_lax.Precision.HIGH)
+            precision=_lax.Precision.HIGHEST)
         t = _lax.conv_general_dilated(
             t, kv, (1, 1), "VALID", feature_group_count=3,
             dimension_numbers=("NCHW", "OIHW", "NCHW"),
-            precision=_lax.Precision.HIGH)
+            precision=_lax.Precision.HIGHEST)
         sxx, sxy, syy = t[0, 0], t[0, 1], t[0, 2]
     return sxx, sxy, syy
 

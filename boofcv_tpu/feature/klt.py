@@ -5,7 +5,7 @@ Reference analog: boofcv-feature alg/tracker/klt/KltTracker.java:55
 square template), PyramidKltTracker.java:37 (coarse-to-fine over the
 pyramid), KltTrackFault.java (per-track fault codes).
 
-TPU design (SURVEY §7 stage 2): ALL tracks are advanced simultaneously —
+Design (SURVEY §7 stage 2): ALL tracks are advanced simultaneously —
 track state is a fixed-capacity [N] pool; each GN iteration is a batched
 bilinear patch gather + batched 2x2 solve (vmap across features), levels
 unrolled coarse-to-fine, iterations via lax.fori_loop.  One jit, zero
@@ -22,7 +22,8 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
-from boofcv_tpu.ip.interpolate import bilinear, sample_rect_bilinear, sample_rect_bilinear_multi
+from boofcv_tpu.ip.interpolate import (gather_windows, sample_rect_bilinear,
+                                       sample_rect_bilinear_multi)
 
 
 # Fault codes (KltTrackFault analog)
@@ -41,11 +42,10 @@ class KltConfig:
     max_per_pixel_error: float = 25.0
     min_determinant: float = 0.001
     convergence_tol: float = 0.01  # pixels at the level's scale
-    # "windowed": ONE Pallas window-gather per level per track, then
-    # every GN iteration resamples inside the window with two 2-tap
-    # interpolation matmuls — no gather on the iteration critical path
-    # (TPU gathers are element-serialized and dominate the "gather"
-    # method's cost).  "gather": flat image gather per iteration.
+    # "windowed": ONE window gather per level per track, then every GN
+    # iteration resamples inside the window with two 2-tap interpolation
+    # matmuls — no gather on the iteration critical path.  "gather":
+    # flat image gather per iteration (the equivalence-test oracle).
     method: str = "windowed"
 
 
@@ -104,25 +104,27 @@ def _interp_matrix(frac, base, p, wsz, dtype):
             + (a == lo + 1).astype(dtype) * f)
 
 
+def window_shape(radius: int):
+    """(WY, WX) of the windowed level's per-track window: room for the
+    (P+1)-span bilinear support plus ~8 px of drift in y and ~4 px in x."""
+    return (24, 16) if 2 * radius + 3 <= 16 else (32, 32)
+
+
 def _track_level_windowed(image, desc, gx, gy, cy, cx, cfg: KltConfig):
     """One KLT level, gather-free GN loop (see KltConfig.method).
 
-    Gathers each track's (WY, WX) neighborhood once (Pallas
-    window-gather kernel — TPU XLA gathers are element-serialized and
-    ~15x slower), then every GN iteration resamples the (P, P) patch at
-    the current sub-pixel position as  Wy @ window @ Wx^T  with 2-tap
+    Gathers each track's (WY, WX) neighborhood once, centered on the
+    track, then every GN iteration resamples the (P, P) patch at the
+    current sub-pixel position as  Wy @ window @ Wx^T  with 2-tap
     interpolation matrices — batched matmuls instead of gathers.  Tracks
-    whose motion within the level exceeds the window margin (~4 px,
-    beyond KLT's convergence basin anyway) clamp to the window edge and
-    are caught by the out-of-bounds fault.
+    whose motion within the level exceeds the window margin (~8 px in y,
+    ~4 px in x, beyond KLT's convergence basin anyway) clamp to the
+    window edge and are caught by the out-of-bounds fault.
     """
-    from boofcv_tpu.kernels.window_gather import (
-        gather_windows, aligned_window_origin)
     n = desc.shape[0]
     r = cfg.template_radius
     p = 2 * r + 1
-    wy_sz = 24 if p + 2 <= 16 else 32
-    wx_sz = 16 if p + 2 <= 16 else 32
+    wy_sz, wx_sz = window_shape(r)
     h, w = image.shape
     img = image if jnp.issubdtype(image.dtype, jnp.floating) \
         else image.astype(jnp.float32)
@@ -138,7 +140,14 @@ def _track_level_windowed(image, desc, gx, gy, cy, cx, cfg: KltConfig):
 
     cy = cy.astype(dt)
     cx = cx.astype(dt)
-    oy, ox, py0, px0 = aligned_window_origin(cy, cx, r, h, w, wy_sz, wx_sz)
+    # window origins: the (P+1)-span bilinear support sits in the middle
+    # of the window, clamped into the image
+    oy = jnp.clip(jnp.floor(cy).astype(jnp.int32) - r - (wy_sz - p - 1) // 2,
+                  0, max(h - wy_sz, 0))
+    ox = jnp.clip(jnp.floor(cx).astype(jnp.int32) - r - (wx_sz - p - 1) // 2,
+                  0, max(w - wx_sz, 0))
+    py0 = cy - r - oy.astype(dt)
+    px0 = cx - r - ox.astype(dt)
     win = gather_windows(img, oy, ox, wy_sz, wx_sz)
 
     # in-window patch top-left positions and their clamp bounds
@@ -208,14 +217,6 @@ def _track_level(image, desc, gx, gy, cy, cx, cfg: KltConfig):
     n = desc.shape[0]
     r = cfg.template_radius
     h, w = image.shape
-
-    # NOTE r4: a fused Pallas per-track kernel (all GN iterations per
-    # launch, image in VMEM, aligned block loads + one-hot window
-    # extraction) was brought to full Mosaic lowering and measured at the
-    # production config: 11.2 ms/call vs 2.7 ms for this batched XLA
-    # path (grid-per-track hardware sequencing serializes 512 tiny
-    # programs).  The batched formulation IS the TPU-native answer, so
-    # the kernel was removed — see PROFILE.md "Pallas KLT postmortem".
 
     # Inverse-compositional: Hessian from template gradients, constant
     # across iterations (KltTracker precomputes Gxx,Gxy,Gyy at :147).
@@ -296,8 +297,7 @@ def track_pyramid(pyramid: Sequence[jnp.ndarray], templates: KltTemplates,
     if cfg.method not in ("windowed", "gather"):
         raise ValueError(
             f"unknown KltConfig.method {cfg.method!r}: 'windowed' or "
-            "'gather' (the fused-Pallas option was removed in r4 — "
-            "PROFILE.md 'Pallas KLT postmortem')")
+            "'gather'")
     n = ys.shape[0]
     fault = jnp.full((n,), TRACK_OK, dtype=jnp.int32)
     num_levels = len(scales)

@@ -5,7 +5,7 @@ HoughTransformBinary.java / HoughTransformGradient.java with polar
 (HoughParametersPolar) and foot-of-norm parameterizations,
 GridRansacLineDetector.
 
-TPU design: the accumulator is a scatter-add over all edge pixels at
+Design: the accumulator is a scatter-add over all edge pixels at
 once ([N_pixels] -> [n_theta, n_rho] bincount); peaks via the standard
 nonmax + top-k.  The gradient variant votes only along each pixel's
 gradient direction.

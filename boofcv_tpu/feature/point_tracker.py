@@ -6,7 +6,7 @@ PointTrackerKltPyramid.java:41 (pyramidal KLT tracker),
 DetectDescribeAssociate.java:42 (DDA tracker), and the combined
 KLT+re-detection hybrid (CombinedTrackerScalePoint).
 
-TPU design: every implementation owns a fixed-capacity device pool
+Design: every implementation owns a fixed-capacity device pool
 (positions, uids, alive mask); the host-facing API returns numpy views of
 active tracks like the reference's getActiveTracks.
 """

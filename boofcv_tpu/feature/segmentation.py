@@ -5,7 +5,7 @@ Reference analog: boofcv-feature alg/segmentation/ — slic/SegmentSlic.java,
 fh04/SegmentFelzenszwalbHuttenlocher04.java, watershed/WatershedVincentSoille1991.java,
 ms/SegmentMeanShift*.
 
-TPU design: SLIC is the TPU-native one (k-means over a 5D embedding with
+Design: SLIC is the batched one (k-means over a 5D embedding with
 spatially-limited assignment — all batched); mean-shift filtering is an
 iterated local weighted average (stencil); watershed and FH's union-find
 merging are host-side finishers on small label images (documented
@@ -27,9 +27,9 @@ def slic(image, num_segments: int = 100, compactness: float = 10.0,
 
     image: [H, W] gray or [H, W, 3] color.  Returns int32 label image
     [H, W] with labels in [0, num_segments).  Assignment is computed over
-    ALL clusters per pixel (TPU-regular) rather than the 2S-window trick —
-    at BoofCV's segment counts this is one [H*W, K] distance matrix, MXU
-    food.
+    ALL clusters per pixel (regular shapes) rather than the 2S-window trick —
+    at BoofCV's segment counts this is one [H*W, K] distance matrix, one
+    matmul.
     """
     img = jnp.asarray(image, jnp.float32)
     if img.ndim == 2:

@@ -6,7 +6,7 @@ edge rejection, subpixel interpolation), alg/feature/describe/
 DescribePointSift.java + DescribeSiftCommon (4x4x8 soft-binned
 histograms), OrientationHistogramSift.
 
-TPU design: the whole DoG stack for an octave is one [S, H, W] tensor;
+Design: the whole DoG stack for an octave is one [S, H, W] tensor;
 extrema = reduce-window over the 3x3x3 neighborhood; descriptors are
 batched gather + soft-binned scatter-adds over all keypoints at once.
 The octave ladder (SiftScaleSpace.java:51) is a Python-level unrolled

@@ -4,7 +4,7 @@ Reference analog: boofcv-feature alg/feature/detect/template/
 TemplateMatching.java + TemplateIntensityImage / methods SSD, SAD, NCC
 (TemplateDiffSquared, TemplateNCC).
 
-TPU design: correlation-style scores are computed as convolutions /
+Design: correlation-style scores are computed as convolutions /
 box-filter compositions over the whole image at once; peak extraction
 reuses feature.extract nonmax+top-k.
 """

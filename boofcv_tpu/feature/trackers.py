@@ -5,7 +5,7 @@ circulant/CirculantTracker.java (dense FFT correlation tracker),
 meanshift/TrackerMeanShiftLikelihood.java (back-projection mean-shift),
 tld/TldTracker.java (covered separately later).
 
-TPU design: circulant is the natural first pick — training and detection
+Design: circulant is the natural first pick — training and detection
 are elementwise ops in the Fourier domain (jnp.fft on device); mean-shift
 is an iterated weighted-centroid reduction.
 """

@@ -3,9 +3,9 @@
 Reference analog: boofcv-geo alg/cloud/PointCloudUtils.java (filtering,
 statistics) and alg/nn/KdTreePoint3D_F64.java (ddogleg KD-trees).
 
-TPU design: NN queries are batched distance matrices (one matmul-shaped
-reduction) — at SLAM-scale cloud sizes this beats tree traversal on TPU
-by a wide margin; filtering/statistics are masked reductions.
+Design: NN queries are batched distance matrices (one matmul-shaped
+reduction) — at SLAM-scale cloud sizes this suits an accelerator better
+than tree traversal; filtering/statistics are masked reductions.
 """
 
 from __future__ import annotations

@@ -5,7 +5,7 @@ FundamentalLinear7.java, EssentialNister5.java), alg/geo/h/
 (HomographyDirectLinearTransform.java), and the residuals in
 alg/geo/f/FundamentalResidualSampson.java / DistanceEpipolarConstraint.
 
-TPU design: every solver is written over a *batch* of minimal sample sets
+Design: every solver is written over a *batch* of minimal sample sets
 (leading axis = RANSAC hypotheses), so K hypotheses are solved as one
 batched SVD/eig — the hypothesis-parallel RANSAC sweet spot (SURVEY §2.4
 "robust estimation glue").  All solvers run in f64 (conditioning), points
@@ -59,7 +59,7 @@ def _epipolar_design(p1, p2):
 def _smallest_singular_vector(A):
     """Right singular vector of least singular value: [..., M, 9] -> [..., 9].
 
-    Uses eigh of A^T A (symmetric 9x9) — batched, TPU-friendly, f64.
+    Uses eigh of A^T A (symmetric 9x9) — batched, f64.
     """
     AtA = jnp.swapaxes(A, -1, -2) @ A
     w, v = jnp.linalg.eigh(AtA)
@@ -98,8 +98,8 @@ def fundamental_8pt(p1, p2, weights=None):
 
 
 def _cubic_roots(a3, a2, a1, a0):
-    """Real cubic roots — closed-form Cardano (TPU has no eigvals/LU;
-    see smalllinalg).  Returns (roots [..., 3], real_mask [..., 3])."""
+    """Real cubic roots — closed-form Cardano (no batched eigvals on
+    the accelerator; see smalllinalg).  Returns (roots [..., 3], real_mask [..., 3])."""
     from boofcv_tpu.geo.smalllinalg import cubic_roots
     return cubic_roots(a3, a2, a1, a0)
 
@@ -152,7 +152,7 @@ def essential_8pt(p1, p2, weights=None):
 
     The reference exposes Nister-5pt for minimal sets; for hypothesis-
     parallel RANSAC an 8-point minimal set with exact manifold projection
-    is equally usable and far more TPU-regular.  p1, p2: [..., N>=8, 2]
+    is equally usable and far more regular in shape.  p1, p2: [..., N>=8, 2]
     in normalized (K^-1) coordinates.  ``weights`` scales design rows
     (inlier-mask refits).
     """
@@ -316,14 +316,15 @@ def cameras_from_fundamental(F):
 # Nister 5-point essential solver
 # ---------------------------------------------------------------------------
 # Reference: boofcv-geo alg/geo/f/EssentialNister5.java:62 (+ SymPy generator
-# main/boofcv-geo/src/generate/python/nister5.py).  TPU design: instead of
+# main/boofcv-geo/src/generate/python/nister5.py).  Design: instead of
 # symbolically expanded coefficient code, the ten cubic constraint
 # polynomials are expanded NUMERICALLY by evaluating them at 20 fixed sample
 # points and interpolating over the 20 cubic monomials (one small matmul —
 # exact for polynomials, batched over all RANSAC hypotheses).  The action of
 # Nister's Gauss-Jordan elimination is a batched 10x10 solve; the degree-10
 # determinant polynomial's roots come from a batched Durand-Kerner iteration
-# (smalllinalg.poly_roots) since TPU XLA has no general eigvals.
+# (smalllinalg.poly_roots) since XLA has no general eigvals on the
+# accelerator.
 
 # Nister's monomial order: x3 y3 x2y xy2 x2z x2 y2z y2 xyz xy |
 #                          xz2 xz x yz2 yz y z3 z2 z 1
@@ -394,7 +395,8 @@ def essential_nister5(p1, p2):
     # Gauss-Jordan: G = C1^-1 C2 over the last 10 monomials
     C1 = C[..., :, :10]
     C2 = C[..., :, 10:]
-    # TPU XLA has no f64 LU: QR + triangular solve instead of linalg.solve
+    # QR + triangular solve instead of linalg.solve (written for a first
+    # target without f64 LU; ROADMAP D4)
     Q, Rq = jnp.linalg.qr(C1)
     G = jax.lax.linalg.triangular_solve(
         Rq, jnp.swapaxes(Q, -1, -2) @ C2, left_side=True, lower=False)

@@ -4,7 +4,7 @@ Reference analog: boofcv-geo alg/geo/pose/ — P3PGrunert.java (closed-form
 3-point), PnPLepetitEPnP.java:104 (EPnP), the DLT PnP, and the nonlinear
 refiner with Rodrigues jacobians (PnPJacobianRodrigues.java).
 
-TPU design: P3P is the RANSAC minimal solver — written fully batched so K
+Design: P3P is the RANSAC minimal solver — written fully batched so K
 hypotheses solve as one quartic-root (companion eigenvalue) batch; the
 absolute-orientation step (point-cloud alignment) is a batched 3x3 SVD.
 The refiner is Gauss-Newton on se(3) with a fixed iteration count
@@ -20,8 +20,8 @@ from boofcv_tpu.geo import se3
 
 
 def _quartic_roots(c4, c3, c2, c1, c0):
-    """Real quartic roots — closed-form Ferrari (TPU has no eigvals/LU;
-    see smalllinalg).  Returns (roots [..., 4], real_mask [..., 4])."""
+    """Real quartic roots — closed-form Ferrari (no batched eigvals on
+    the accelerator; see smalllinalg).  Returns (roots [..., 4], real_mask [..., 4])."""
     from boofcv_tpu.geo.smalllinalg import quartic_roots
     return quartic_roots(c4, c3, c2, c1, c0)
 
@@ -32,9 +32,8 @@ def absolute_orientation(world, cam, dtype=jnp.float64):
     alignment inside P3P pose recovery).
 
     world, cam: [..., N, 3].  Returns (R [..., 3, 3], t [..., 3]).
-    Uses eigh of the 4x4 quaternion matrix rather than SVD — eigh is
-    implemented on TPU for every float dtype (f32 SVD crashes the TPU
-    compiler), and ``dtype=jnp.float32`` makes RANSAC hypothesis
+    Uses eigh of the 4x4 quaternion matrix rather than SVD (written for
+    a first target whose compiler failed on f32 SVD), and ``dtype=jnp.float32`` makes RANSAC hypothesis
     generation cheap (the winner is re-refined in f64 anyway).
     """
     world = world.astype(dtype)
@@ -77,8 +76,8 @@ def rigid_from_three_points(world, cam):
     world, cam: [..., 3, 3] (three points, xyz).  Returns (R, t) with
     cam_i = R @ world_i + t.  Builds the orthonormal triangle frame in
     both coordinate systems and composes them — no eigh/SVD, pure
-    arithmetic, ~20x cheaper than Horn's quaternion method on TPU for
-    the P3P hypothesis path (where correspondences are exact by
+    arithmetic, cheaper than Horn's quaternion method (an eigen-solve)
+    for the P3P hypothesis path (where correspondences are exact by
     construction, so least-squares generality buys nothing).
     """
     def frame(p):
@@ -91,9 +90,8 @@ def rigid_from_three_points(world, cam):
         return jnp.stack([e1, e2, e3], axis=-1)      # columns
     Bw = frame(world)
     Bc = frame(cam)
-    # pin full precision: the TPU default computes these f32/f64 matmuls
-    # at bf16-grade, which capped the "f64 oracle" P3P path at ~2e-3
-    # rotation error on-device
+    # pin full precision: a reduced-precision default (TF32 on a GPU)
+    # caps the "f64 oracle" P3P path's rotation accuracy
     R = jnp.einsum("...ij,...kj->...ik", Bc, Bw, precision="highest")
     cw = jnp.mean(world, axis=-2)
     cc = jnp.mean(cam, axis=-2)
@@ -109,9 +107,8 @@ def p3p_grunert(world, obs, dtype=jnp.float64):
     up to 4 pose solutions per sample (quartic roots), camera-from-world.
 
     ``dtype=jnp.float32`` runs the whole closed form in f32 — right for
-    RANSAC hypothesis generation on TPU (f64 is emulated there, ~10x),
-    where hypotheses only seed inlier classification and the winner is
-    re-refined in f64.
+    RANSAC hypothesis generation, where hypotheses only seed inlier
+    classification and the winner is re-refined.
     """
     world = world.astype(dtype)
     obs = obs.astype(dtype)
@@ -422,8 +419,8 @@ def epnp(world, obs, refine_iterations: int = 10):
     # barycentric coordinates: [4] per point with sum = 1
     Cmat = jnp.concatenate([ctrl.T, jnp.ones((1, 4), jnp.float64)], axis=0)
     rhs = jnp.concatenate([world.T, jnp.ones((1, n), jnp.float64)], axis=0)
-    # normal-equations solve via eigh: f64 LU (jnp.linalg.solve) does not
-    # lower on TPU (see smalllinalg); Cmat is well-conditioned by the
+    # normal-equations solve via eigh (written for a first target without
+    # f64 LU; see smalllinalg); Cmat is well-conditioned by the
     # principal-axes control-point choice
     from boofcv_tpu.geo.smalllinalg import inv_spd, solve33
     alpha = (inv_spd(Cmat.T @ Cmat) @ (Cmat.T @ rhs)).T     # [N, 4]
@@ -586,8 +583,8 @@ def gauss_newton_pose(R, t, world, obs, weights=None, iterations: int = 10,
     2x3) — one residual pass per iteration instead of jacfwd's six
     tangent passes.
 
-    Mixed precision for TPU (where f64 is software-emulated, ~10x):
-    the convergence iterations run in f32 — GN's quadratic convergence
+    Mixed precision: the convergence iterations run in f32 (f64 is
+    several times slower on accelerators) — GN's quadratic convergence
     reaches f32 machine accuracy in 3-4 steps — then
     ``polish_iterations`` full-f64 steps land the solution at f64
     accuracy (each f64 step squares the error of the f32 estimate).
@@ -603,7 +600,7 @@ def gauss_newton_pose(R, t, world, obs, weights=None, iterations: int = 10,
         # composition preserves that off-manifold error forever (GN then
         # floors at 1e-7).  Newton polar iteration R(3I - R^T R)/2 restores
         # orthogonality quadratically — two steps reach f64 accuracy —
-        # without SVD (f32 SVD crashes the TPU compiler).
+        # without SVD.
         R = R.astype(jnp.float64)
         for _ in range(2):
             R = R @ (1.5 * jnp.eye(3, dtype=jnp.float64) - 0.5 * (R.T @ R))

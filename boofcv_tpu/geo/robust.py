@@ -5,7 +5,7 @@ through boofcv-geo's ModelGenerator/DistanceFromModel adapters
 (alg/geo/robust/, factory/geo/FactoryMultiViewRobust.java:109).  The
 reference iterates hypotheses sequentially with early exit.
 
-TPU design (SURVEY §2.4): draw ALL K hypothesis sample sets up front,
+Design (SURVEY §2.4): draw ALL K hypothesis sample sets up front,
 solve every minimal problem in one vmapped batch, score all K x N
 residuals as one reduction, argmax inlier count.  Fixed K (static shape)
 replaces early exit — choose K >= the reference's iteration budget.
@@ -40,8 +40,8 @@ def sample_indices(key, num_hypotheses: int, sample_size: int, n: int,
     if valid_mask is not None:
         scores = jnp.where(valid_mask[None, :], scores, -1.0)
     # S masked-argmax passes instead of a full top_k: top_k sorts every
-    # row (0.6 ms at [256, 512] on TPU) while S argmax reductions +
-    # one-hot knockouts are ~10x cheaper for the S<=8 used here.
+    # row, while S argmax reductions + one-hot knockouts do linear work
+    # for the S<=8 used here.
     cols = jnp.arange(n, dtype=jnp.int32)[None, :]
     picks = []
     for _ in range(sample_size):
@@ -300,9 +300,8 @@ def ransac_pnp(key, world, obs, num_hypotheses: int = 256,
     example's EnumPNP.P3P_FINSTERWALDER).  Returns
     (RansacResult, (R_refined, t_refined)).
 
-    The whole hypothesis bank (minimal solves + scoring) runs in f32 —
-    TPU-native precision; f64 there is software-emulated and was the
-    single hottest stage of the VO step.  Hypotheses only seed inlier
+    The whole hypothesis bank (minimal solves + scoring) runs in f32,
+    the accelerator's fast precision.  Hypotheses only seed inlier
     classification (threshold ~1e-3 normalized units vs f32's ~1e-7
     resolution); the winning model is then GN-refined with an f64
     polish, so the returned pose is full precision.
@@ -338,9 +337,8 @@ def ransac_pnp(key, world, obs, num_hypotheses: int = 256,
     mask = result.inliers
     w64 = jnp.where(mask[:, None], world.astype(jnp.float64), 1.0)
     o64 = jnp.where(mask[:, None], obs.astype(jnp.float64), 0.0)
-    # polish_iterations=0 by default: each f64 GN step is ~0.7 ms of
-    # software-emulated arithmetic on TPU, while the f32 loop converges
-    # to ~1e-6 normalized units — far below tracking noise.  Callers
+    # polish_iterations=0 by default: the f32 loop converges to ~1e-6
+    # normalized units — far below tracking noise.  Callers
     # needing calibration-grade poses (not RANSAC consumers — they
     # follow with BA) can request f64 polish steps.
     Rr, tr = pnp.gauss_newton_pose(R, t, w64, o64,

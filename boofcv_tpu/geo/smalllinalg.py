@@ -1,13 +1,13 @@
-"""TPU-safe small-matrix linear algebra.
+"""Batched small-matrix linear algebra.
 
-XLA's TPU backend does not implement LU decomposition (linalg.inv/solve)
-or general eigendecomposition (eigvals) for f64 — and for the batched
+Written for a first target whose XLA backend had no LU decomposition
+(linalg.inv/solve) and no general eigendecomposition (eigvals) for f64;
+XLA has no general eigvals on the GPU either (ROADMAP D4).  For the batched
 2x2/3x3/4x4 systems this framework solves by the thousand, closed forms
 are faster than any factorization anyway.  This module provides:
 
 * ``inv2/inv3`` — adjugate inverses, batched;
-* ``solve_spd`` — symmetric-positive-definite solve via eigh (QDWH-based
-  eigh IS implemented on TPU for all float types);
+* ``solve_spd`` — symmetric-positive-definite solve via eigh;
 * ``cubic_roots`` / ``quartic_roots`` — closed-form (Cardano / Ferrari)
   real-root extraction, replacing companion-matrix eigvals;
 * ``solve33_batch`` — Cramer solve for [..., 3, 3] systems.
@@ -71,7 +71,7 @@ def solve33(A, b):
 
 
 def solve_spd(A, b):
-    """SPD solve via eigh (TPU-supported for f64).  A: [..., N, N]."""
+    """SPD solve via eigh.  A: [..., N, N]."""
     w, Q = jnp.linalg.eigh(A)
     ws = jnp.where(jnp.abs(w) < 1e-300, 1e-300, w)
     y = jnp.einsum("...ij,...i->...j", Q, b)  # Q^T b
@@ -177,10 +177,10 @@ def quartic_roots(c4, c3, c2, c1, c0):
 def poly_roots(coeffs, iters: int = 120):
     """Batched all-roots of a real-coefficient polynomial (Durand-Kerner).
 
-    Replaces companion-matrix ``eigvals`` (absent on the TPU backend) for
+    Replaces companion-matrix ``eigvals`` (absent on accelerator backends) for
     the degree-10 polynomial of the Nister 5-point solver.  Complex
     arithmetic is carried as explicit (re, im) f64 pairs so no complex
-    dtype is required (TPU complex128 is unsupported).
+    dtype is required.
 
     coeffs: [..., D+1] highest-degree first.  Returns (re [..., D],
     im [..., D]).  The caller decides which roots are "real" (small |im|).

@@ -8,7 +8,7 @@ MultiCameraToEquirectangular.java (blend several wide cameras into one
 360 canvas), and alg/distort/NarrowToWidePtoP_F64.java (pinhole <->
 wide-FOV point transforms).
 
-TPU shape: every transform is a dst->src warp-grid builder on
+Shape: every transform is a dst->src warp-grid builder on
 ``ip.distort`` — the map is evaluated once as two [H, W] coordinate
 grids (pure jnp, jit-friendly) and applied as a single batched bilinear
 gather.  Camera frame convention: +x right, +y down, +z forward (the

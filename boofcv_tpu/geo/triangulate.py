@@ -5,7 +5,7 @@ Triangulate2ViewsGeometricMetric.java (midpoint closest-point),
 TriangulateMetricLinearDLT.java:46 (N-view homogeneous DLT), and the
 nonlinear reprojection refiners.
 
-TPU design: all functions broadcast over leading batch axes so every track
+Design: all functions broadcast over leading batch axes so every track
 in a scene triangulates as one batched 4x4 eigendecomposition / 3x3 solve.
 Observations are *normalized image coordinates* (K^-1 pixels) as in the
 reference's metric triangulation.

@@ -5,7 +5,7 @@ TrifocalLinearPoint7.java (linear 7+ point solve with normalization),
 TrifocalTransfer.java (point transfer), TrifocalExtractGeometries.java
 (epipoles + camera matrices).
 
-TPU design: the linear system is one batched [..., 4N, 27] nullspace via
+Design: the linear system is one batched [..., 4N, 27] nullspace via
 eigh (hypothesis-parallel ready); transfer is einsum algebra.
 """
 

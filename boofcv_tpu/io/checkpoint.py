@@ -1,7 +1,7 @@
 """Checkpoint / resume for long-running jobs.
 
 The reference has no checkpointing (batch library; nearest artifacts are
-its YAML/PLY/BAL codecs — SURVEY §5).  For the TPU build long sequences
+its YAML/PLY/BAL codecs — SURVEY §5).  Here long sequences
 and large BA problems are restartable: scene structure, trajectories,
 and arbitrary pytrees of arrays round-trip through a single ``.npz``
 (orbax-style contents, zero extra dependencies).

@@ -2,7 +2,7 @@
 
 Reference analog: boofcv-ip alg/filter/binary/BinaryImageOps.java,
 LinearContourLabelChang2004.java.  Morphology = min/max stencils (pure
-VPU).  Connected-component labeling — inherently sequential union-find in
+elementwise).  Connected-component labeling — inherently sequential union-find in
 the reference — becomes iterative min-label propagation under
 ``lax.while_loop`` (converges in O(diameter) sweeps, each sweep a fused
 9-point stencil; fine for the blob sizes calibration/fiducial work sees).

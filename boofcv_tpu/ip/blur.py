@@ -2,7 +2,7 @@
 
 Gaussian and mean as separable convolutions; median via a vectorized
 sliding-window rank select (the reference's histogram median collapses to a
-sort over the window axis — fully parallel on the VPU).
+sort over the window axis — fully parallel elementwise).
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ def median(image: jnp.ndarray, radius: int) -> jnp.ndarray:
     """Median filter (BlurImageOps.median) with EXTENDED border.
 
     Gathers the (2r+1)^2 window per pixel and takes the middle order
-    statistic — O(w^2 log w) sort on the VPU, no data-dependent control flow.
+    statistic — O(w^2 log w) elementwise sort, no data-dependent control flow.
     """
     r = radius
     padded = pad(image, r, r, BorderType.EXTENDED)

@@ -4,7 +4,7 @@
 packed in raster order skipping the center (CensusTransform.java /
 ImplCensusTransformInner.java).  Border pixels use EXTENDED neighbors
 (the reference allows an ImageBorder; dense SGM uses extended).
-Bit-parallel compares on the VPU; output int32.
+Bit-parallel compares elementwise; output int32.
 """
 
 from __future__ import annotations

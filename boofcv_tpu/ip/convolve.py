@@ -3,9 +3,11 @@
 The reference ships hand-unrolled per-dtype horizontal/vertical/2D loops
 (noborder/ConvolveImageStandard_SB.java:44, ConvolveImageUnrolled_*),
 plus border, normalized-border and renormalizing variants.  All of that
-collapses here into `lax.conv_general_dilated` calls on padded inputs —
-XLA tiles these onto the TPU convolution/matmul units, and fuses the
-surrounding elementwise work.
+collapses here into `lax.conv_general_dilated` calls on padded inputs,
+and XLA fuses the surrounding elementwise work.  Every convolution runs
+at HIGHEST precision: a GPU's lower settings round f32 operands to TF32
+(10 mantissa bits), which moves pyramid levels, gradients and corner
+scores away from the CPU result.
 
 Conventions:
 * kernels are correlation kernels (BoofCV convolves with the kernel as
@@ -37,7 +39,7 @@ def _conv2d_valid(image: jnp.ndarray, kernel2d: jnp.ndarray) -> jnp.ndarray:
     out = lax.conv_general_dilated(
         img, ker, window_strides=(1, 1), padding="VALID",
         dimension_numbers=("NCHW", "OIHW", "NCHW"),
-        precision=lax.Precision.HIGH,
+        precision=lax.Precision.HIGHEST,
     )
     return out[0, 0]
 
@@ -118,7 +120,7 @@ def convolve_down(image: jnp.ndarray, kernel: jnp.ndarray, skip: int,
     out = lax.conv_general_dilated(
         img, ker, window_strides=strides, padding="VALID",
         dimension_numbers=("NCHW", "OIHW", "NCHW"),
-        precision=lax.Precision.HIGH,
+        precision=lax.Precision.HIGHEST,
     )
     return out[0, 0]
 

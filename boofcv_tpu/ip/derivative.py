@@ -30,8 +30,8 @@ def sobel(image: jnp.ndarray, border: BorderType = BorderType.EXTENDED):
     img = image.astype(jnp.float32)
     if border == BorderType.EXTENDED:
         # fused path: both derivatives as ONE 2-output-channel 3x3 conv
-        # (4 separable convs -> 1 op; the stencil is tiny, the win is op
-        # count / HBM passes on TPU)
+        # (4 separable convs -> 1 op and one pass over the image); HIGHEST
+        # for the reason given in ip/convolve.py
         from jax import lax as _lax
         d = jnp.array([-1.0, 0.0, 1.0], jnp.float32)
         s = jnp.array([1.0, 2.0, 1.0], jnp.float32)
@@ -44,7 +44,7 @@ def sobel(image: jnp.ndarray, border: BorderType = BorderType.EXTENDED):
         out = _lax.conv_general_dilated(
             padded, ker, window_strides=(1, 1), padding="VALID",
             dimension_numbers=("NCHW", "OIHW", "NCHW"),
-            precision=_lax.Precision.HIGH)
+            precision=_lax.Precision.HIGHEST)
         return out[0, 0], out[0, 1]
     smooth = jnp.array([1.0, 2.0, 1.0], dtype=jnp.float32)
     dx = convolve.horizontal(img, _DERIV_3, border)

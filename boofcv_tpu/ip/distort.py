@@ -2,7 +2,7 @@
 
 The reference's ImageDistort.apply (alg/distort/ImageDistortBasic_SB.java)
 walks destination pixels, maps each through a Point2Transform, and
-interpolates the source.  TPU-native: build the map once as two (H, W)
+interpolates the source.  Batched: build the map once as two (H, W)
 coordinate grids (the "cached" variant ImageDistortCache_SB is the
 *default* here), then warp = one batched bilinear gather — ideal for
 rectification and lens undistortion where the map is static per camera.

@@ -26,7 +26,7 @@ def equalize_histogram(image: jnp.ndarray, max_value: int = 255) -> jnp.ndarray:
 def equalize_local(image: jnp.ndarray, radius: int, max_value: int = 255) -> jnp.ndarray:
     """Local histogram equalization (EnhanceImageOps.equalizeLocal).
 
-    TPU formulation: per-pixel rank transform — output = (count of window
+    Formulation: per-pixel rank transform — output = (count of window
     pixels <= center) scaled.  Equivalent to local CDF evaluated at the
     center pixel; computed with a windowed comparison sum.
     """

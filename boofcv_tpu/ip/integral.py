@@ -3,7 +3,7 @@
 BoofCV convention (IntegralImageOps.transform / ImplIntegralImageOps.java):
 ``II[y, x] = sum of I over rows 0..y, cols 0..x`` *inclusive* — so II has
 the same shape as I and block sums use the exclusive corner trick with
-clamped negative indices.  On TPU: two cumsums (HBM-bandwidth bound, XLA
+clamped negative indices.  Here: two cumsums (HBM-bandwidth bound, XLA
 lowers cumsum to an efficient scan).
 
 Haar/box feature evaluation is 4 gathers per corner — used by the SURF
@@ -54,7 +54,8 @@ def _shift_static(ii: jnp.ndarray, dy: int, dx: int) -> jnp.ndarray:
     """II sampled at (y+dy, x+dx) for EVERY pixel with _sample's border
     semantics (implicit zeros above/left, clamp below/right) — pure
     pad+slice.  The gather formulation (ii[yc, xc] with full [H, W]
-    index grids) serializes on TPU; static shifts compile to copies."""
+    index grids) serialized on the first target; static shifts compile
+    to copies."""
     h, w = ii.shape
     if dy >= 0:
         out = jnp.pad(ii, ((0, dy), (0, 0)), mode="edge")[dy:dy + h]

@@ -1,16 +1,19 @@
 """Pixel interpolation (reference analog: boofcv-ip alg/interpolate/*).
 
 Bilinear / nearest / bicubic point samplers, batched over arbitrary
-coordinate arrays — one fused gather+lerp expression, the TPU analog of
-BilinearPixelS.java's per-pixel method.  Coordinates follow the BoofCV
+coordinate arrays — one fused gather+lerp expression, the batched analog
+of BilinearPixelS.java's per-pixel method.  Coordinates follow the BoofCV
 convention: integer coordinates hit pixel centers, valid domain is
 [0, W-1] x [0, H-1]; out-of-range samples clamp (EXTENDED border).
 """
 
 from __future__ import annotations
 
+import functools
+
 import jax
 import jax.numpy as jnp
+from jax import lax
 
 
 def nearest(image: jnp.ndarray, ys, xs) -> jnp.ndarray:
@@ -92,16 +95,13 @@ def in_bounds(shape_hw, ys, xs, border: float = 0.0):
 def sample_rect_bilinear(image: jnp.ndarray, cy, cx, radius: int) -> jnp.ndarray:
     """Sample a (2r+1)^2 patch centered at float (cy, cx) with bilinear interp.
 
-    Batched: cy/cx of shape [N] -> [N, 2r+1, 2r+1].  This is the TPU analog
-    of InterpolateRectangle (used by the KLT template sampler).
+    Batched: cy/cx of shape [N] -> [N, 2r+1, 2r+1].  This is the batched
+    analog of InterpolateRectangle (used by the KLT template sampler).
 
     Implementation: ONE flat gather of (P+1)^2 row-major offsets per track
-    + a 4-term bilinear blend with per-track scalar weights — measured
-    ~2x lower latency than a vmapped dynamic_slice per track inside
-    dependent loops (KLT's GN chain), and far cheaper than per-pixel
-    scalar gathers.  Centers whose support leaves the image are clamped
-    to the border (callers mask out-of-bounds tracks separately, as KLT
-    does).
+    + a 4-term bilinear blend with per-track scalar weights.  Centers
+    whose support leaves the image are clamped to the border (callers
+    mask out-of-bounds tracks separately, as KLT does).
     """
     p = 2 * radius + 1
     h, w = image.shape
@@ -148,3 +148,19 @@ def sample_rect_bilinear_multi(images: jnp.ndarray, cy, cx,
             + (1 - fy) * fx * sl[..., :p, 1:]
             + fy * (1 - fx) * sl[..., 1:, :p]
             + fy * fx * sl[..., 1:, 1:])
+
+
+@functools.partial(jax.jit, static_argnames=("wy", "wx", "pad"))
+def gather_windows(image, oy, ox, wy: int, wx: int, pad: int = 0):
+    """Copy [N, wy, wx] windows with integer top-left corners (oy, ox).
+
+    Reads outside the image resolve to the nearest border pixel (EXTENDED
+    border), for corners with -pad <= oy, oy + wy <= max(h, wy) + pad and
+    likewise in x; corners beyond that range clamp into it.  One
+    ``dynamic_slice`` per window, which XLA lowers to a single gather.
+    """
+    h, w = image.shape
+    padded = jnp.pad(image, ((pad, pad + max(wy - h, 0)),
+                             (pad, pad + max(wx - w, 0))), mode="edge")
+    return jax.vmap(lambda a, b: lax.dynamic_slice(padded, (a, b), (wy, wx)))(
+        oy.astype(jnp.int32) + pad, ox.astype(jnp.int32) + pad)

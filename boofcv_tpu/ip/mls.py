@@ -4,7 +4,7 @@ Reference analog: boofcv-ip alg/distort/mls/ImageDeformPointMLS_F32.java
 (Schaefer et al. 2006 — affine / similarity / rigid variants, evaluated
 on a coarse grid then interpolated).
 
-TPU design: the per-grid-point solve is closed-form and fully batched
+Design: the per-grid-point solve is closed-form and fully batched
 over the grid (no loops over control points either); the dense warp is
 the usual inverse-map bilinear gather.
 """

@@ -3,7 +3,7 @@
 Reference analog: the Planar<T> overloads spread across boofcv-ip
 (GBlurImageOps / GConvolveImageOps / ConvertImage.java:38 / planar
 variants of distort): the reference loops the single-band op over bands.
-TPU-native: ONE ``vmap`` over the band axis — the bands become a leading
+Batched: ONE ``vmap`` over the band axis — the bands become a leading
 batch dimension of the same compiled kernel, so a 3-band blur is one
 fused dispatch, not three.
 

@@ -5,7 +5,7 @@ Haar/Daub4/biorthogonal coefficient sets in FactoryWaveletDaub /
 FactoryWaveletHaar) and alg/denoise/wavelet/ (DenoiseVisuShrink,
 DenoiseBayesShrink, DenoiseSureShrink threshold rules).
 
-TPU design: each DWT level = strided separable convolutions (one fused
+Design: each DWT level = strided separable convolutions (one fused
 program); thresholding rules are elementwise on the coefficient images.
 Images are padded to even sizes per level internally.
 """

@@ -4,7 +4,7 @@ Reference analog: boofcv-ip alg/weights/ — WeightPixelGaussian_F32 (2D
 Gaussian pixel weight), WeightPixelUniform_F32, WeightDistance_F32 /
 WeightDistanceSqGaussian_F32 (radial distance weights).
 
-TPU design: weights are precomputed [2r+1, 2r+1] arrays multiplied into
+Design: weights are precomputed [2r+1, 2r+1] arrays multiplied into
 batched patch reductions — the per-pixel virtual calls of the reference
 collapse into one broadcasted multiply.
 """

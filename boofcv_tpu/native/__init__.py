@@ -1,6 +1,6 @@
 """Native (C++) host-side runtime: lazy g++ build + ctypes bindings.
 
-The TPU compute path is JAX/XLA/Pallas; this package holds the host-side
+The device compute path is JAX/XLA; this package holds the host-side
 sequential finishers that BoofCV implements as tight Java loops
 (LinearContourLabelChang2004.java:59, LinearExternalContours.java) — here
 compiled C++ loaded through ctypes.  Everything degrades gracefully: if the
@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
+import tempfile
 import threading
 
 import numpy as np
@@ -28,13 +29,24 @@ _tried = False
 
 
 def _build() -> bool:
+    """Compile ccl.cpp into _build/ (git-ignored).  Each process links
+    into its own file and renames it into place, so concurrent first
+    uses never load a half-written library."""
     os.makedirs(os.path.dirname(_SO), exist_ok=True)
-    cmd = ["g++", "-O2", "-shared", "-fPIC", "-std=c++17", _SRC, "-o", _SO]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(_SO))
+    os.close(fd)
+    cmd = ["g++", "-O2", "-shared", "-fPIC", "-std=c++17", _SRC, "-o", tmp]
     try:
         res = subprocess.run(cmd, capture_output=True, timeout=120)
+        if res.returncode != 0:
+            return False
+        os.replace(tmp, _SO)
+        return True
     except (OSError, subprocess.TimeoutExpired):
         return False
-    return res.returncode == 0 and os.path.exists(_SO)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
 
 
 def _load():

@@ -6,7 +6,7 @@
 //   - external contour tracing: .../alg/filter/binary/LinearExternalContours.java
 //
 // These are the inherently sequential parts of the binary pipeline; the
-// TPU-side path (thresholding, morphology, min-label propagation CCL) stays
+// device-side path (thresholding, morphology, min-label propagation CCL) stays
 // in JAX, and this module is the fast host finisher for detectors that need
 // per-blob contours (fiducials, QR, calibration targets).  It is loaded via
 // ctypes (boofcv_tpu/native/__init__.py) and is a drop-in equivalent of the
@@ -157,7 +157,7 @@ int32_t boofcv_external_contours(const uint8_t* img, int32_t h, int32_t w,
 // Felzenszwalb-Huttenlocher 2004 graph segmentation (host-side finisher).
 // Reference analog: boofcv-feature
 //   alg/segmentation/fh04/SegmentFelzenszwalbHuttenlocher04.java:81
-// The per-pixel edge weights are computed on the TPU (jnp); this routine is
+// The per-pixel edge weights are computed on the device (jnp); this routine is
 // the inherently sequential sorted-edge union-find merge.
 //   wr:  h*w float, weight of edge (y,x)->(y,x+1), last column ignored
 //   wd:  h*w float, weight of edge (y,x)->(y+1,x), last row ignored

@@ -8,7 +8,7 @@ points = the squares' corners), CalibrationDetectorCircleRegularGrid.java
 alg/fiducial/calib/squares/SquareGridTools.java and
 alg/fiducial/calib/circle/Key*Grid.java + EllipseClustersIntoGrid.
 
-TPU design: thresholding + blob labeling run on device (elementwise +
+Design: thresholding + blob labeling run on device (elementwise +
 iterative label propagation); contour tracing, shape fitting, and grid
 ordering are host-side on the tiny extracted data — the same
 device/host split the chessboard detector uses.

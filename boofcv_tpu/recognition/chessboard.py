@@ -5,7 +5,7 @@ CalibrationDetectorChessboard + boofcv-feature alg/feature/detect/chess/
 DetectChessboardCorners2.java (XCornerAbeles2019Intensity x-corner
 response, corner graph assembly into a grid).
 
-TPU design: the x-corner intensity is a fixed ring-sample stencil over
+Design: the x-corner intensity is a fixed ring-sample stencil over
 the blurred image (batched for all pixels); subpixel refinement reuses
 extract.subpixel_quadratic; grid assembly (ordering corners into rows x
 cols) is a small host-side nearest-neighbor walk.

@@ -5,8 +5,8 @@ Reference analog: boofcv-recognition deepboof/ImageClassifierVggCifar10
 around pretrained networks (VGG-like CIFAR-10, Network-in-Network
 ImageNet) with fixed preprocessing (resize, mean/std normalize).
 
-TPU design: the forward pass is a stack of XLA `conv_general_dilated`
-calls in NHWC — exactly the MXU sweet spot; parameters are a flat dict
+Design: the forward pass is a stack of XLA `conv_general_dilated`
+calls in NHWC — exactly what matmul units are for; parameters are a flat dict
 of arrays loadable from .npz (the reference downloads serialized torch
 models; offline environments initialize randomly and load weights from
 disk when available).

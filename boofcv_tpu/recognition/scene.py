@@ -4,7 +4,7 @@ Reference analog: boofcv-recognition alg/scene/ —
 ClassifierKNearestNeighborsBow.java, FeatureToWordHistogram_F64.java,
 with k-means clustering from boofcv-learning (alg/bow/ClusterVisualWords).
 
-TPU design: k-means is the canonical batched workload — assignment is
+Design: k-means is the canonical batched workload — assignment is
 one [N, K] distance matmul, update one segment-sum; histogram encoding
 and kNN classification are the same two primitives again.
 """

@@ -7,7 +7,7 @@ TldFernClassifier/TldFernManager (random-fern binary tests),
 TldTemplateMatching (NCC nearest-neighbor confirmation),
 TldDetection / non-max region selection, TldLearning (P/N updates).
 
-TPU split: fern bit-tests, variance gates and NCC template scores are
+Device/host split: fern bit-tests, variance gates and NCC template scores are
 batched device ops over a window grid; the learning bookkeeping (fern
 posteriors, template lists with dynamic growth) is host-side numpy, as
 in the reference.

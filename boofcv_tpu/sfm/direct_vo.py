@@ -4,7 +4,7 @@ Reference analog: boofcv-sfm alg/sfm/d3/direct/VisOdomDirectColorDepth.java
 — photometric Gauss-Newton on an RGB-D pyramid: minimize
 sum_p (I_cur(warp(p, xi)) - I_key(p))^2 over the se(3) increment.
 
-TPU design: this is the most TPU-friendly VO — each GN iteration is a
+Design: this is the most batch-friendly VO — each GN iteration is a
 dense warp (block gather) + dense reductions over every valid pixel;
 coarse-to-fine over the pyramid; all under one jit.
 """

@@ -6,7 +6,7 @@ paired stereo-wise at spawn time, cross-validated every frame with the
 epipolar constraint, and motion is estimated with RANSAC-PnP from the
 left camera's observations of the triangulated stereo points.
 
-TPU design: ONE fixed-capacity pool carries both cameras' track state
+Design: ONE fixed-capacity pool carries both cameras' track state
 (left/right positions + KLT templates per pyramid level); both KLT
 updates are batched GN sweeps; the epipolar cross-check is a masked
 row/disparity test; RANSAC-P3P + spawn compaction follow

@@ -8,7 +8,7 @@ overhead view of the ground plane (metric cells), 2D rigid motion is
 estimated between overhead frames, and the SE2 is lifted back to the
 camera's SE3.
 
-TPU design: the overhead warp is a precomputed gather map applied as one
+Design: the overhead warp is a precomputed gather map applied as one
 batched bilinear lookup; frame-to-frame motion is KLT in overhead space +
 hypothesis-parallel RANSAC over a 2-point rigid SE2 solver (vmapped
 closed form, scored as one [K, N] reduction).

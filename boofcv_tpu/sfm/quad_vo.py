@@ -7,7 +7,7 @@ an epipolar constraint and previous-current per camera; features matched
 consistently around the quad are triangulated in the previous frame and
 motion is estimated with RANSAC-PnP, relative to the left camera.
 
-TPU design: each association is one descriptor score matrix on the MXU
+Design: each association is one descriptor score matrix (one matmul)
 (with the epipolar gate folded in as an additive mask) + mutual-NN
 argmins; the quad-consistency check is pure index chaining on fixed-
 capacity feature sets; triangulation and RANSAC-P3P run batched exactly

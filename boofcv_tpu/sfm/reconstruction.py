@@ -7,7 +7,7 @@ EstimateSceneCalibrated.java:65,111 (seed selection, essential decompose
 :175, incremental growth with PnP + triangulate-as-you-grow :296-580),
 ThreeViewEstimateMetricScene.java.
 
-TPU split (SURVEY §3.5): detect/describe/associate/RANSAC/triangulation/BA
+Device/host split (SURVEY §3.5): detect/describe/associate/RANSAC/triangulation/BA
 run batched on device; graph bookkeeping (track tables, which image joins
 next) is host-side Python exactly like the reference's graph logic.
 """
@@ -126,8 +126,8 @@ def _tri2_jit(na, nb, R, t):
 
 def _tri2_padded(na, nb, R, t):
     """Two-view triangulation through a jitted kernel with power-of-two
-    padding: O(log N) distinct compiles instead of one eager ~100 ms op
-    chain per call (the growth loop triangulates per edge per step)."""
+    padding: O(log N) distinct compiles instead of one eager op chain
+    per call (the growth loop triangulates per edge per step)."""
     n = len(na)
     cap = 1 << int(np.ceil(np.log2(max(n, 8))))
     na_p = np.zeros((cap, 2))

@@ -6,7 +6,7 @@ unused -> addNewTracks [spawn + sparse stereo 3D, :224]) wrapped by
 WrapVisOdomPixelDepthPnP.java:99 (rectification first), assembled by
 FactoryVisualOdometry.stereoDepth (FactoryVisualOdometry.java:186-222).
 
-TPU design (SURVEY §7 stage 4 + §3.1 boundary plan): ALL per-frame math is
+Design (SURVEY §7 stage 4 + §3.1 boundary plan): ALL per-frame math is
 one jitted step over a fixed-capacity track pool:
   * track state lives on device (positions, world points, alive mask);
   * KLT advances every slot in parallel (batched pyramidal GN);
@@ -113,14 +113,10 @@ def _spawn(state: StereoVoState, pyramid, grads, left, right,
     cand_ok &= jnp.min(d2, axis=1) > min_r
 
     # stereo depth at candidates
-    # "sad_xla": candidate positions come from the detector (conv ->
-    # top_k) and the Pallas window-gather kernel stalls ~20 ms/frame when
-    # its scalar operands depend on conv outputs (measured r03); the XLA
-    # flat-gather scores identically and costs ~4 ms here
     dcfg = disp_mod.DisparityConfig(
         min_disparity=cfg.min_disparity, max_disparity=cfg.max_disparity,
         radius_x=cfg.disparity_radius, radius_y=cfg.disparity_radius,
-        texture_threshold=0.1, error="sad_xla")
+        texture_threshold=0.1, error="sad")
     disp, dvalid = disp_mod.sparse_block_match(
         left, right, cand_y.astype(jnp.int32), cand_x.astype(jnp.int32), dcfg)
     cand_ok &= dvalid & (disp > 0.5)
@@ -175,8 +171,7 @@ def _make_step_parts(cfg: StereoVoConfig, rectK, baseline: float):
     Split so the batched (vmapped) step can gate the expensive spawn
     branch on an ANY-LANE predicate — a per-lane ``lax.cond`` under vmap
     lowers to select-of-both-branches, which forced detection + sparse
-    stereo onto EVERY frame of every stream (measured 15x/stream
-    regression at B=8 on chip)."""
+    stereo onto EVERY frame of every stream."""
     fx = float(rectK[0, 0])
     fy = float(rectK[1, 1])
     cx = float(rectK[0, 2])
@@ -302,10 +297,9 @@ def make_sequence_runner(cfg: StereoVoConfig, rectK, baseline: float):
     run(state, lefts [N,H,W], rights [N,H,W]) -> (state, (poses, metrics))
     with poses = (R [N,3,3], t [N,3]) world->camera per frame.
 
-    This is the throughput path: a remote/tunneled TPU pays one dispatch
-    round-trip per CALL, and per-frame calls chain on the carried state —
-    scanning K frames per call amortizes that latency K-fold (and lets
-    XLA overlap adjacent frames' independent stages).
+    This is the throughput path: one dispatch per sequence instead of
+    one per frame, and XLA may overlap adjacent frames' independent
+    stages.
     """
     step = _make_step_fn(cfg, rectK, baseline)
 
@@ -338,13 +332,13 @@ def make_batched_step(cfg: StereoVoConfig, rectK, baseline: float):
 
     step(states, lefts [B,H,W], rights [B,H,W]) -> (states, metrics).
 
-    This is the TPU-native throughput lever the reference cannot express
-    (BoofConcurrency.java:82 parallelizes within one frame only): the
-    single-stream step is dispatch/HBM-latency bound at <2% MFU
-    (PROFILE.md), so batching B cameras/sequences into one program buys
-    ~B-fold frames/s/chip at near-constant latency until the MXU/HBM
-    saturate.  Multi-camera rigs, fleet replay, and dataset evaluation
-    are the natural users.
+    This is the throughput lever the reference cannot express
+    (BoofConcurrency.java:82 parallelizes within one frame only): one
+    stream's step is too small to fill the device, so batching B
+    cameras/sequences into one program raises frames/s per device at
+    near-constant latency until compute or memory bandwidth saturate.
+    Multi-camera rigs, fleet replay, and dataset evaluation are the
+    natural users.
     """
     return jax.jit(_make_batched_step_fn(cfg, rectK, baseline))
 
@@ -398,9 +392,7 @@ def make_batched_sequence_runner(cfg: StereoVoConfig, rectK,
 
 
 def make_bootstrap(cfg: StereoVoConfig, rectK, baseline: float):
-    """Jitted first-frame initializer (one compile, zero per-op dispatch —
-    critical on remote-compile TPU backends where every unjitted op pays a
-    compile round-trip)."""
+    """Jitted first-frame initializer (one compile, no per-op dispatch)."""
     pyr_cfg = PyramidConfig(scales=cfg.pyramid_scales)
     rectK = jnp.asarray(rectK, jnp.float64)
 

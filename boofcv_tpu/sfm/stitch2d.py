@@ -4,7 +4,7 @@ Reference analog: boofcv-sfm alg/sfm/d2/ — StitchingFromMotion2D.java
 (incremental mosaic via tracked 2D motion models),
 ImageMotionPointTrackerKey.java (key-frame tracker + robust model fit).
 
-TPU design: KLT tracks frame-to-frame, a robust homography (RANSAC over
+Design: KLT tracks frame-to-frame, a robust homography (RANSAC over
 the matmul-scored matches) accumulates into mosaic-from-frame transforms,
 and each frame is warped+blended into the mosaic canvas with one fused
 gather — the whole per-frame pipeline is device work, the keyframe logic
@@ -46,10 +46,13 @@ class Stitcher:
         self.weight = jnp.zeros(self.shape, jnp.float32)
         self._prev = None
         self._tracks = None
+        self._n_detected = 0.0
 
     # ---- device helpers -------------------------------------------------
     def _detect(self, image):
-        return extract.detect_tracks(image, max_features=self.n)
+        ys, xs, valid = extract.detect_tracks(image, max_features=self.n)
+        self._n_detected = float(jnp.sum(valid.astype(jnp.float32)))
+        return ys, xs, valid
 
     def _track(self, pyr_prev, pyr_cur, ys, xs):
         grads = pyramid_ops.gradient(pyr_prev)
@@ -110,12 +113,13 @@ class Stitcher:
             self.H_mosaic_from_frame @ np.linalg.inv(H_cur_from_prev))
         self._blend(image, self.H_mosaic_from_frame)
 
-        # fraction of EVER-VALID tracks still inlying (a mean over the
-        # fixed capacity made feature-sparse scenes re-detect every
-        # frame even with 100% of real tracks surviving)
-        n_valid = float(jnp.sum(valid.astype(jnp.float32)))
+        # fraction of the tracks valid at the last detection still
+        # inlying (a mean over the fixed capacity made feature-sparse
+        # scenes re-detect every frame even with 100% of real tracks
+        # surviving; a fraction of the previous frame's survivors let
+        # slow attrition starve the pool without ever re-detecting)
         alive_frac = float(jnp.sum((ok & res.inliers).astype(jnp.float32))
-                           ) / max(n_valid, 1.0)
+                           ) / max(self._n_detected, 1.0)
         if alive_frac < self.retrack_below:
             self._tracks = self._detect(image)
         else:

@@ -5,7 +5,7 @@ Scene.java:80,157 — associated triples -> robust trifocal tensor ->
 projective cameras -> linear dual-quadratic self-calibration -> metric
 upgrade -> triangulation -> bundle adjustment.
 
-TPU design: the trifocal RANSAC is hypothesis-parallel (vmapped 7+-point
+Design: the trifocal RANSAC is hypothesis-parallel (vmapped 7+-point
 linear solves, transfer-error scoring as one [K, N] reduction); the
 self-calibration and metric upgrade are tiny host-side dense solves; the
 final BA is the library's batched LM-Schur.

@@ -81,7 +81,7 @@ class SlidingWindowBA:
         ts = np.stack([f["t"] for f in self.frames])
         fixed = np.zeros(V, bool)
         fixed[:2] = True    # pin gauge incl. scale on the two oldest
-        # f32: the TPU-native fast path (f64 is software-emulated on TPU);
+        # f32: the fast path;
         # normalized-coordinate residuals at the 1e-4 level are well inside
         # f32 range and LM only needs descent-quality steps
         prob = ba.make_problem(Rs, ts, pts, obs_xy, obs_view, obs_valid,

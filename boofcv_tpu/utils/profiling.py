@@ -2,7 +2,7 @@
 
 Reference analog: boofcv-ip misc/ProfileOperation.java (stopwatch),
 misc/MovingAverage.java, Performer/PerformerBase micro-bench drivers.
-TPU additions (SURVEY §5): jax.profiler trace capture (Perfetto-
+Additions (SURVEY §5): jax.profiler trace capture (Perfetto-
 compatible) and a per-stage timer that blocks on device results so
 stage boundaries are honest under async dispatch.
 """

@@ -150,7 +150,7 @@ def test_analytic_jacobians_match_autodiff():
 
 
 def test_ba_f32_fast_path_converges():
-    """The TPU-native f32 path must reach the (injected) noise floor."""
+    """The f32 fast path must reach the (injected) noise floor."""
     rng = np.random.default_rng(5)
     noise = 5e-4
     pts, Rs, ts, intr, oxy, ov, oval = build_scene(rng, noise=noise)

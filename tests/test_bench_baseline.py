@@ -4,6 +4,7 @@ baseline actually solves the task (VisOdomPixelDepthPnP.java spec)."""
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
 
 def test_numpy_vo_recovers_trajectory():
@@ -36,3 +37,24 @@ def test_numpy_vo_recovers_trajectory():
         errs.append(np.linalg.norm(t - np.asarray(poses[i][1])))
     assert np.mean(errs) < 0.02, errs
     assert vo.alive.mean() > 0.3
+
+
+@pytest.mark.parametrize("kind", ["cpu", "NVIDIA A100-SXM4-80GB", ""])
+def test_peak_table_refuses_unknown_device(kind):
+    import bench_breadth
+    with pytest.raises(ValueError, match="no published peaks"):
+        bench_breadth.peaks(kind)
+
+
+def test_peak_table_holds_h100_data_sheet():
+    import bench_breadth
+    pk = bench_breadth.peaks("NVIDIA H100 80GB HBM3")
+    assert pk["bf16_flops"] == 989e12
+    assert pk["hbm_bytes_per_s"] == 3.35e12
+
+
+def test_bench_rows_need_a_gpu(capsys):
+    import bench_breadth
+    with pytest.raises(SystemExit):
+        bench_breadth.emit({"metric": "m", "value": 1.0})
+    assert capsys.readouterr().out == ""

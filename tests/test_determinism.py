@@ -1,4 +1,4 @@
-"""Determinism tests (SURVEY §5: the TPU analog of the reference's
+"""Determinism tests (SURVEY §5: the batched analog of the reference's
 ST<->MT equivalence harness — same seed must give bitwise-equal results,
 since there is no nondeterministic thread scheduling to race)."""
 

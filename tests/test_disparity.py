@@ -202,10 +202,10 @@ def test_mi_cost_table_prefers_true_matches():
 
 
 def test_sparse_scorer_equivalence():
-    """One semantics, three speeds (r02 verdict): the Pallas SAD and the
-    XLA flat-gather SAD must agree bit-for-bit; SSD must pick the same
-    winner wherever a clean match exists (different metric, same optimum
-    on noise-free data)."""
+    """One semantics, two metrics: the SAD cost table matches a NumPy
+    clamped-coordinate SAD, and SSD picks the same winner wherever a
+    clean match exists (different metric, same optimum on noise-free
+    data)."""
     from boofcv_tpu.feature import disparity as dm
     rng = np.random.default_rng(8)
     h, w = 96, 160
@@ -215,19 +215,33 @@ def test_sparse_scorer_equivalence():
     n = 64
     ys = rng.integers(8, h - 8, n).astype(np.int32)
     xs = rng.integers(40, w - 8, n).astype(np.int32)
+    ys[:2] = [0, h - 1]                  # rows clamp at the image borders
+    xs[:2] = [3, w - 1]
     base = dm.DisparityConfig(min_disparity=0, max_disparity=32,
                               radius_x=3, radius_y=3,
                               texture_threshold=0.1)
+    costs = np.asarray(dm._sparse_costs_sad(
+        jnp.asarray(left), jnp.asarray(right), jnp.asarray(ys),
+        jnp.asarray(xs), base))
+    r = np.arange(-3, 4)
+    rows = np.clip(ys[:, None] + r[None, :], 0, h - 1)            # [N, 7]
+    cols_l = np.clip(xs[:, None] + r[None, :], 0, w - 1)
+    patch = left[rows[:, :, None], cols_l[:, None, :]]            # [N, 7, 7]
+    want = np.empty((n, 32))
+    for d in range(32):
+        c = xs[:, None] - d + r[None, :]                          # [N, 7]
+        strip = right[rows[:, :, None], np.clip(c, 0, w - 1)[:, None, :]]
+        e = np.abs(patch - strip)
+        e = np.where(((c >= 0) & (c < w))[:, None, :], e, 1e6)
+        want[:, d] = e.sum(axis=(1, 2))
+    np.testing.assert_allclose(costs, want, rtol=1e-5)
     out = {}
-    for err in ("sad", "sad_xla", "ssd"):
+    for err in ("sad", "ssd"):
         d, v = dm.sparse_block_match(jnp.asarray(left), jnp.asarray(right),
-                                     jnp.asarray(ys), jnp.asarray(xs),
+                                     jnp.asarray(ys[2:]), jnp.asarray(xs[2:]),
                                      base._replace(error=err))
         out[err] = (np.asarray(d), np.asarray(v))
-    # SAD implementations: identical scores => identical output
-    np.testing.assert_array_equal(out["sad"][0], out["sad_xla"][0])
-    np.testing.assert_array_equal(out["sad"][1], out["sad_xla"][1])
-    # all three find the true disparity where they report valid
+    # both find the true disparity where they report valid
     for err, (d, v) in out.items():
-        assert v.sum() > 0.8 * n, (err, v.sum())
+        assert v.sum() > 0.8 * (n - 2), (err, v.sum())
         assert np.allclose(d[v], d_true, atol=0.51), (err, d[v])

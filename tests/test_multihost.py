@@ -56,7 +56,7 @@ out, info = ba_sharded.optimize_sharded(prob, mesh, iterations=2)
 print("FINAL_COST", float(info["final_cost"]), flush=True)
 
 # the at-scale reduced solver over BOTH processes: 1D mesh spanning the
-# 4 devices (2 per host), row-scattered PCG riding the same DCN path
+# 4 devices (2 per host), row-scattered PCG riding the same cross-host path
 from boofcv_tpu.dist import make_mesh
 mesh1d = make_mesh()
 out2, info2 = ba_sharded.optimize_sharded(prob, mesh1d, iterations=2,

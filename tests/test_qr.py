@@ -37,7 +37,7 @@ def test_reed_solomon_rejects_overload():
                                            (10, "L")])
 def test_qr_roundtrip(version, level):
     cap = qr.data_capacity_bytes(version, level)
-    text = ("boofcv-tpu! " * 40)[: max(cap - 5, 1)]
+    text = ("boofcv-jax! " * 40)[: max(cap - 5, 1)]
     for mask in (0, 3, 7):
         mat = qr.encode(text, version, level, mask)
         out, info = qr.decode(mat)
